@@ -1,0 +1,445 @@
+"""Neo LS-SVM — the sklearn-compatible estimator, on PyTorch and CUDA inside.
+
+PyTorch port of the primal route of ``neo_ls_svm_tpu.models.estimator``: validation,
+task-type inference, the in-memory / streaming route split, and pandas passthrough
+happen at the host boundary (mirroring the reference's ``NeoLSSVM``, ref
+``_neo_ls_svm.py:43-821``); every O(n·D)+ floating-point operation runs on the estimator's
+device through ``models/primal.py``.
+
+The estimator runs on the card (``device="cuda"``, the default) unless the caller asks
+for the CPU with ``device="cpu"``; it never moves to the CPU on its own. What this port
+does not cover yet raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+ports it.
+"""
+
+from typing import TYPE_CHECKING, Any, Literal
+
+import numpy as np
+import numpy.typing as npt
+import torch
+
+from neo_ls_svm_torch.models.primal import (
+    gamma_grid,
+    primal_decision_function,
+    primal_fit,
+    primal_fit_streaming,
+    primal_predict_var,
+    trim_per_row,
+)
+from neo_ls_svm_torch.ops.affine import AffineSeparator
+from neo_ls_svm_torch.ops.orff import KernelApproximatingFeatureMap, OrthogonalRandomFourierFeatures
+from neo_ls_svm_torch.utils.base import BaseEstimator, clone
+from neo_ls_svm_torch.utils.metrics import accuracy_score, r2_score
+from neo_ls_svm_torch.utils.validation import (
+    _check_n_features,
+    check_array,
+    check_consistent_length,
+    check_is_fitted,
+    check_X_y,
+    is_pandas,
+)
+
+if TYPE_CHECKING:  # pandas is an optional I/O convenience, never a runtime dependency.
+    import pandas as pd
+
+DUAL_THRESHOLD = 1024  # n ≤ 1024 → dual space (ref _neo_ls_svm.py:375).
+STREAMING_BYTES_THRESHOLD = 6 * 1024**3  # In-memory working set above this → stream.
+STREAMING_ROW_CHUNK = 32768
+PREDICT_CHUNK_ROWS = 1 << 20  # Chunk predictions beyond this many rows (bounds the
+# transient n×2M feature block on the device).
+
+
+def _primal_working_set_bytes(n_rows: int, num_features: int, itemsize: int) -> int:
+    """Primal-solver working-set estimate: ~3 transient copies of the n×2M real
+    embedding of φ. The fit's route decision thresholds on it."""
+    return 3 * n_rows * 2 * (num_features + 1) * itemsize
+
+
+def _maybe_pandas_series(values: npt.NDArray, X_df: Any) -> Any:
+    if is_pandas(X_df):
+        try:
+            import pandas as pd
+        except ImportError:
+            return values
+        return pd.Series(values, index=X_df.index)
+    return values
+
+
+def _to_device(a: npt.NDArray, device: torch.device) -> torch.Tensor:
+    """Host array → tensor on ``device`` (a read-only array is copied first: torch
+    warns on wrapping a non-writable buffer)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to neo_ls_svm_torch yet (ROADMAP.md, {item}); "
+        "use neo_ls_svm_tpu for it."
+    )
+
+
+def _reject_tensor(*values: Any) -> None:
+    if any(isinstance(v, torch.Tensor) for v in values):
+        raise _not_ported("torch.Tensor input", "Queue 1 item 8, device-resident I/O")
+
+
+class NeoLSSVM(BaseEstimator):
+    """Neo LS-SVM: a modern least-squares SVM with O(n) training and hyperparameter-free
+    LOO tuning, running its linear algebra on an NVIDIA GPU through PyTorch and
+    hand-written CUDA kernels.
+
+    ``device`` names the torch device the solver runs on. It defaults to ``"cuda"``;
+    ``fit`` raises when CUDA is unavailable unless ``device="cpu"`` was passed.
+    """
+
+    def __init__(
+        self,
+        *,
+        primal_feature_map: KernelApproximatingFeatureMap | Literal["auto"] = "auto",
+        dual_feature_map: AffineSeparator | Literal["auto"] = "auto",
+        dual: bool | Literal["auto"] = "auto",
+        estimator_type: Literal["auto", "classifier", "regressor"] = "auto",
+        random_state: int | np.random.RandomState | None = 42,
+        precision: Literal["high", "fast"] = "high",
+        pre_transform: Literal["auto", "host", "device"] = "auto",
+        transfer: Literal["auto", "float32", "bfloat16", "int8"] = "auto",
+        mesh: Any = None,
+        conformal_method: Literal["exact", "smooth"] = "exact",
+        device: str | torch.device = "cuda",
+    ) -> None:
+        self.primal_feature_map = primal_feature_map
+        self.dual_feature_map = dual_feature_map
+        self.dual = dual
+        self.random_state = random_state
+        self.estimator_type = estimator_type
+        self.precision = precision
+        self.pre_transform = pre_transform
+        self.transfer = transfer
+        self.mesh = mesh
+        self.conformal_method = conformal_method
+        self.device = device
+
+    # ------------------------------------------------------------------ fitting
+
+    def _resolve_device(self) -> torch.device:
+        device = torch.device(self.device)
+        if device.type not in ("cuda", "cpu"):
+            msg = f"device must be a CUDA or CPU device, got {self.device!r}."
+            raise ValueError(msg)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            msg = (
+                f"NeoLSSVM(device={self.device!r}) needs a CUDA device and none is "
+                "available; pass device='cpu' to run on the CPU."
+            )
+            raise RuntimeError(msg)
+        return device
+
+    def _check_options(self) -> None:
+        """Reject invalid option values (ValueError) and valid ones this port does not
+        cover yet (NotImplementedError)."""
+        if self.pre_transform not in ("auto", "host", "device"):
+            msg = f"pre_transform must be 'auto', 'host' or 'device', got {self.pre_transform!r}."
+            raise ValueError(msg)
+        if self.transfer not in ("auto", "float32", "bfloat16", "int8"):
+            msg = (
+                f"transfer must be 'auto', 'float32', 'bfloat16' or 'int8', "
+                f"got {self.transfer!r}."
+            )
+            raise ValueError(msg)
+        if self.conformal_method not in ("exact", "smooth"):
+            msg = f"conformal_method must be 'exact' or 'smooth', got {self.conformal_method!r}."
+            raise ValueError(msg)
+        if self.precision not in ("high", "fast"):
+            msg = f"precision must be 'high' or 'fast', got {self.precision!r}."
+            raise ValueError(msg)
+        if self.pre_transform == "device":
+            raise _not_ported("pre_transform='device'", "Queue 1 item 5, device pre-transform")
+        if self.transfer not in ("auto", "float32"):
+            raise _not_ported(f"transfer={self.transfer!r}", "Queue 1 item 5, device pre-transform")
+        if self.mesh is not None:
+            raise _not_ported("mesh", "Queue 1 item 10, multi-GPU")
+
+    def fit(
+        self,
+        X: "npt.NDArray | pd.DataFrame",
+        y: "npt.NDArray | pd.Series",
+        sample_weight: "npt.NDArray | pd.Series | None" = None,
+    ) -> "NeoLSSVM":
+        """Fit this predictor."""
+        _reject_tensor(X, y, sample_weight)
+        device = self._resolve_device()
+        self._check_options()
+        X, y = check_X_y(X, y, dtype=(np.float64, np.float32), ensure_min_samples=2)
+        y = np.ravel(np.asarray(y))
+        sample_weight_ = (
+            np.ones(y.shape, X.dtype)
+            if sample_weight is None
+            else np.ravel(np.asarray(sample_weight)).astype(X.dtype)
+        )
+        check_consistent_length(y, sample_weight_)
+        if np.sum(sample_weight_) <= 0:
+            msg = "The sample weights are all zero; at least one weight must be positive."
+            raise ValueError(msg)
+        dual = X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual
+        if dual:
+            raise _not_ported(
+                f"The dual route (dual=True, or n ≤ {DUAL_THRESHOLD} under dual='auto')",
+                "Queue 1 item 6, dual route",
+            )
+        for name in ("_device_cache", "classes_"):
+            self.__dict__.pop(name, None)
+        self.n_features_in_ = X.shape[1]
+        self.y_dtype_: npt.DTypeLike = y.dtype
+        self.device_ = device
+        # Infer the task type from the target (two classes → classifier; numeric or
+        # datetime-like → regressor; ref :347-373).
+        unique_y = np.unique(y)
+        inferred: str | None = None
+        if len(unique_y) == 2:
+            inferred = "classifier"
+        elif (
+            np.issubdtype(y.dtype, np.number)
+            or np.issubdtype(y.dtype, np.datetime64)
+            or np.issubdtype(y.dtype, np.timedelta64)
+        ):
+            inferred = "regressor"
+        self._estimator_type: str | None = (
+            inferred if self.estimator_type == "auto" else self.estimator_type
+        )
+        if self._estimator_type == "classifier" and len(unique_y) != 2:
+            if np.issubdtype(y.dtype, np.floating) and np.any(y != np.round(y)):
+                msg = (
+                    "Unknown label type: continuous. Maybe you are trying to fit a "
+                    "classifier, which expects discrete classes on a regression target."
+                )
+                raise ValueError(msg)
+            msg = (
+                "Only binary classification is supported. The type of the target is "
+                f"{'multiclass' if len(unique_y) > 2 else 'constant'}."
+            )
+            raise ValueError(msg)
+        if self._estimator_type == "classifier":
+            self.classes_: npt.NDArray = unique_y
+            y_ = np.ones(y.shape, dtype=X.dtype)
+            y_[y == self.classes_[0]] = -1
+        elif self._estimator_type == "regressor":
+            y_ = y.astype(X.dtype)
+        else:
+            msg = "Target type not supported"
+            raise ValueError(msg)
+        is_classifier = self._estimator_type == "classifier"
+        self.dual_ = False
+        self.primal_ = True
+        # The host pre-transform at every size: the device pre-transform the JAX package
+        # picks at ≥ 32 MiB is not ported yet (ROADMAP.md Queue 3).
+        self.pre_transform_, self.transfer_ = "host", "float32"
+        self.primal_feature_map_ = clone(
+            OrthogonalRandomFourierFeatures()
+            if self.primal_feature_map == "auto"
+            else self.primal_feature_map
+        )
+        n_rows = X.shape[0]
+        num_features = int(getattr(self.primal_feature_map_, "num_features", 512))
+        working_set_bytes = _primal_working_set_bytes(n_rows, num_features, X.dtype.itemsize)
+        route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
+        self.primal_feature_map_.fit(X, y_, sample_weight_)
+        M_map, b_map = self.primal_feature_map_.linear_map()
+        self._M_map, self._b_map = M_map.astype(X.dtype), b_map.astype(X.dtype)
+        self.γs_ = gamma_grid(X.dtype, num=1024)
+        # Surface-complexity regulariser. The shipped complexity matrix is the identity
+        # (C_emb=None); a custom feature map with a nontrivial matrix routes through the
+        # whitened-GEVD path (ref _neo_ls_svm.py:116-124).
+        C = np.asarray(self.primal_feature_map_.complexity_matrix, dtype=X.dtype)
+        C_emb = None
+        if not np.array_equiv(C, C[0, 0] * np.eye(C.shape[0], dtype=X.dtype)):
+            C_n = C / (np.mean(np.abs(np.diag(C))) * (n_rows * C.shape[0]))
+            zeros = np.zeros_like(C_n)
+            C_emb = _to_device(np.block([[C_n, zeros], [zeros, C_n]]), device)
+        if self.precision == "high":
+            # IEEE float32 products, as the JAX package's Precision.HIGHEST. precision="fast"
+            # runs the same IEEE products in this port (TF32 for it waits, ROADMAP.md).
+            torch.backends.cuda.matmul.allow_tf32 = False
+            if torch.backends.cuda.matmul.allow_tf32:
+                msg = "TF32 matmuls are still enabled; precision='high' needs IEEE float32."
+                raise RuntimeError(msg)
+        M_d, b_d = _to_device(self._M_map, device), _to_device(self._b_map, device)
+        g_d = _to_device(self.γs_, device)
+        if route == "streaming":
+            # Zero-weight padding rows to a chunk multiple; num_samples keeps the true n.
+            row_pad = (-n_rows) % STREAMING_ROW_CHUNK
+            X_p = np.vstack([X, np.zeros((row_pad, X.shape[1]), X.dtype)]) if row_pad else X
+            y_p = np.concatenate([y_, np.zeros(row_pad, X.dtype)])
+            s_p = np.concatenate([sample_weight_, np.zeros(row_pad, X.dtype)])
+            result = primal_fit_streaming(
+                _to_device(X_p, device),
+                M_d,
+                b_d,
+                _to_device(y_p, device),
+                _to_device(s_p, device),
+                g_d,
+                C_emb,
+                is_classifier=is_classifier,
+                row_chunk=STREAMING_ROW_CHUNK,
+                num_samples=n_rows,
+            )
+            result = trim_per_row(result, n_rows)
+        else:
+            result = primal_fit(
+                _to_device(X, device),
+                M_d,
+                b_d,
+                _to_device(y_, device),
+                _to_device(sample_weight_, device),
+                g_d,
+                C_emb,
+                is_classifier=is_classifier,
+                num_samples=n_rows,
+            )
+        # The GEVD (custom-C) eigenbasis is C-orthonormal: resolvent scale is 1.
+        self._inv_c0 = 1.0 if C_emb is not None else float(n_rows * (num_features + 1))
+        self._device_cache = {
+            "beta_emb": result["beta_emb"],
+            "Qs": result["Qs"],
+            "lam": result["lam"],
+            "M_map": M_d,
+            "b_map": b_d,
+        }
+        self._set_fit_attributes({k: v.cpu().numpy() for k, v in result.items()})
+        return self
+
+    def _set_fit_attributes(self, result: dict[str, npt.NDArray]) -> None:
+        """The reference's fitted attributes (ref :146-187) as NumPy arrays."""
+        self.γ_ = float(result["gamma"])
+        beta_emb = result["beta_emb"]
+        M = beta_emb.shape[0] // 2
+        self.beta_emb_ = beta_emb
+        # Reference-compatible complex coefficient view: β̂ = u + i·v.
+        self.β̂_ = beta_emb[:M] + 1j * beta_emb[M:]
+        self._eig_Qs = result["Qs"]
+        self._eig_lam = result["lam"]
+        self.loo_leverage_ = result["loo_leverage"]
+        self.loo_errors_γs_ = result["loo_errors_gammas"]
+        self.loo_residuals_ = result["loo_residuals"]
+        self.loo_ŷ_ = result["loo_yhat"]
+        self.loo_error_ = float(result["loo_error"])
+        self.loo_score_ = float(result["loo_score"])
+        self.loo_std_ = result["loo_std"]
+        self.residuals_ = result["residuals"]
+
+    # ------------------------------------------------------------- core predictors
+
+    def _device(self, key: str) -> torch.Tensor:
+        """A serving tensor on the fit's device, uploaded from the host state on first
+        use (e.g. after a restore from a state dict)."""
+        cache = self.__dict__.setdefault("_device_cache", {})
+        if key not in cache:
+            dtype = self._M_map.dtype
+            host = {
+                "beta_emb": lambda: self.beta_emb_,
+                "Qs": lambda: self._eig_Qs,
+                "lam": lambda: self._eig_lam,
+                "M_map": lambda: self._M_map,
+                "b_map": lambda: self._b_map,
+                "gamma": lambda: np.asarray(self.γ_, dtype=dtype),
+                "inv_c0": lambda: np.asarray(self._inv_c0, dtype=dtype),
+            }[key]()
+            cache[key] = _to_device(np.asarray(host, dtype=dtype), self.device_)
+        return cache[key]
+
+    def _in_chunks(self, X: npt.NDArray, fn: Any) -> npt.NDArray:
+        """Apply a device function over row chunks of X and return a host array."""
+        X = X.astype(self._M_map.dtype, copy=False)
+        parts = [
+            fn(_to_device(X[start : start + PREDICT_CHUNK_ROWS], self.device_))
+            for start in range(0, X.shape[0], PREDICT_CHUNK_ROWS)
+        ]
+        return torch.cat(parts).cpu().numpy()
+
+    def _validated(self, X: Any) -> npt.NDArray:
+        check_is_fitted(self, ["γ_"])
+        _reject_tensor(X)
+        return _check_n_features(self, check_array(X, dtype=(np.float64, np.float32)))
+
+    def _decision(self, X_np: npt.NDArray) -> npt.NDArray:
+        return self._in_chunks(
+            X_np,
+            lambda X_c: primal_decision_function(
+                X_c, self._device("M_map"), self._device("b_map"), self._device("beta_emb")
+            ),
+        )
+
+    def decision_function(self, X: "npt.NDArray | pd.DataFrame") -> "npt.NDArray | pd.Series":
+        """Evaluate the prediction function ŷ(x) (ref ``:655-681``)."""
+        return _maybe_pandas_series(self._decision(self._validated(X)), X)
+
+    def predict_std(self, X: "npt.NDArray | pd.DataFrame") -> "npt.NDArray | pd.Series":
+        """Bayesian estimate of the predictive standard deviation (ref ``:452-487``)."""
+        X_np = self._validated(X)
+        var = self._in_chunks(
+            X_np,
+            lambda X_c: primal_predict_var(
+                X_c,
+                self._device("M_map"),
+                self._device("b_map"),
+                self._device("Qs"),
+                self._device("lam"),
+                self._device("gamma"),
+                self._device("inv_c0"),
+            ),
+        )
+        return _maybe_pandas_series(np.sqrt(np.maximum(var, 0.0)), X)
+
+    # ------------------------------------------------------------------- prediction
+
+    def predict(
+        self,
+        X: "npt.NDArray | pd.DataFrame",
+        *,
+        coverage: float | None = None,
+        quantiles: npt.ArrayLike | None = None,
+    ) -> "npt.NDArray | pd.Series":
+        """Predict labels (classifier) or values (regressor) on a given dataset."""
+        if coverage is not None or quantiles is not None:
+            raise _not_ported("predict(coverage=…/quantiles=…)", "Queue 1 item 7, calibration")
+        yhat_df = self._decision(self._validated(X))
+        if self._estimator_type == "classifier":
+            # Ties at 0 break to the negative class (sklearn decision_function contract).
+            yhat_sign = np.sign(yhat_df)
+            yhat_sign[yhat_sign == 0] = -1
+            yhat = self.classes_[((yhat_sign + 1) // 2).astype(np.intp)]
+        else:
+            yhat = yhat_df
+        if not np.issubdtype(self.y_dtype_, np.integer):
+            yhat = yhat.astype(self.y_dtype_)
+        return _maybe_pandas_series(yhat, X)
+
+    def predict_proba(self, X: Any) -> Any:
+        """Calibrated class probabilities: not ported yet."""
+        raise _not_ported("predict_proba", "Queue 1 item 7, calibration")
+
+    def predict_quantiles(self, X: Any, *, quantiles: Any = (0.025, 0.05, 0.1, 0.5, 0.9, 0.95, 0.975)) -> Any:
+        """Conformally calibrated quantiles: not ported yet."""
+        raise _not_ported("predict_quantiles", "Queue 1 item 7, calibration")
+
+    def predict_interval(self, X: Any, *, coverage: float = 0.95) -> Any:
+        """Conformally calibrated prediction intervals: not ported yet."""
+        raise _not_ported("predict_interval", "Queue 1 item 7, calibration")
+
+    def score(
+        self,
+        X: "npt.NDArray | pd.DataFrame",
+        y: "npt.NDArray | pd.Series",
+        sample_weight: npt.NDArray | None = None,
+    ) -> float:
+        """Accuracy (classifier) or R² (regressor) on the given data."""
+        yhat = self.predict(X)
+        if self._estimator_type == "classifier":
+            return accuracy_score(np.asarray(y), np.asarray(yhat), sample_weight=sample_weight)
+        return r2_score(
+            np.asarray(y).astype(np.float64),
+            np.asarray(yhat).astype(np.float64),
+            sample_weight=sample_weight,
+        )

@@ -1,0 +1,170 @@
+"""K2: the fused leave-one-out γ-sweep and its plain PyTorch version.
+
+``fused_loo_sweep`` evaluates, for every γ of the grid, the weighted LOO error and the
+γ-selection objective of the streaming solver's second pass. On a CUDA tensor it launches
+the hand-written kernel of ``csrc/sweep.cu`` (the port of
+``neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep``); on a CPU tensor it runs
+:func:`sweep_plain`. There is no fallback from one to the other.
+"""
+
+import math
+
+import torch
+
+from neo_ls_svm_torch.ops.cuda._build import check_operands, check_status, load_library
+
+launches = 0  # Kernel launches of fused_loo_sweep (its plain version is not counted).
+
+_SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory one H100 block may use
+_SMEM_PER_SM = 233_472  # shared memory of one SM (1 KB of it reserved per block)
+_THREADS = 256  # kThreads in csrc/common.cuh
+_ROW_CHOICES = {torch.float32: (16, 8, 4, 2), torch.float64: (8, 4, 2)}
+
+
+def _pad_columns(a: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``a`` with its columns zero-padded to a multiple of 4 (the kernel's 16-byte loads),
+    and the padded leading dimension."""
+    pad = (-a.shape[1]) % 4
+    return (torch.nn.functional.pad(a, (0, pad)) if pad else a), a.shape[1] + pad
+
+
+def sweep_plain(
+    X: torch.Tensor,
+    M_map: torch.Tensor,
+    b_map: torch.Tensor,
+    y: torch.Tensor,
+    s: torch.Tensor,
+    s2: torch.Tensor,
+    Qs: torch.Tensor,
+    r_all: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    is_classifier: bool,
+    inv_c0: float,
+    chunk_rows: int = 16384,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: the JAX package's eager sweep
+    (``models/primal.py`` streaming pass 2), summed over row chunks."""
+    D = M_map.shape[1]
+    dtype, device = X.dtype, X.device
+    inv_sqrt_D = 1.0 / torch.sqrt(torch.tensor(D, dtype=dtype, device=device))
+    G = r_all.shape[1]
+    loo_err = torch.zeros(G, dtype=dtype, device=device)
+    objective = torch.zeros(G, dtype=dtype, device=device)
+    for start in range(0, X.shape[0], chunk_rows):
+        rows = slice(start, start + chunk_rows)
+        U = X[rows] @ M_map + b_map.reshape(1, -1)
+        ones = torch.ones((U.shape[0], 1), dtype=dtype, device=device)
+        W = torch.cat([torch.cos(U) * inv_sqrt_D, ones, torch.sin(U) * inv_sqrt_D, 0 * ones], dim=1)
+        Gu = W @ Qs
+        num = inv_c0 * ((Gu * k[None, :]) @ r_all)
+        lev = inv_c0 * s2[rows, None] * ((Gu * Gu) @ r_all)
+        y_b = y[rows, None]
+        e = (num - y_b) / (1.0 - lev)
+        if is_classifier:
+            e = torch.where(((y_b > 0) & (e > 0)) | ((y_b < 0) & (e < 0)), torch.zeros_like(e), e)
+        abs_e = torch.abs(e)
+        s_b = s[rows]
+        err_b = s_b @ abs_e
+        loo_err += err_b
+        if is_classifier:
+            objective += s_b @ (abs_e >= 1).to(dtype) + s_b @ torch.clamp(abs_e - 1, min=0.0) + err_b
+        else:
+            objective += err_b
+    return loo_err, objective
+
+
+def fused_loo_sweep(
+    X: torch.Tensor,
+    M_map: torch.Tensor,
+    b_map: torch.Tensor,
+    y: torch.Tensor,
+    s: torch.Tensor,
+    s2: torch.Tensor,
+    Qs: torch.Tensor,
+    r_all: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    is_classifier: bool,
+    inv_c0: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Return (loo_errors, objective), each of shape (G,), summed over all rows.
+
+    ``Qs`` is the sign-folded (2M, 2M) eigenbasis, ``r_all`` the (2M, G) resolvent
+    columns 1/(γ+λ), ``k`` = Qsᵀ·WᵀS²y, and ``inv_c0`` the resolvent scale 1/c₀.
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs :func:`sweep_plain`.
+    """
+    if X.device.type == "cpu":
+        return sweep_plain(
+            X, M_map, b_map, y, s, s2, Qs, r_all, k, is_classifier=is_classifier, inv_c0=inv_c0
+        )
+    b_vec = b_map.reshape(-1)
+    check_operands(X, M_map=M_map, b_map=b_vec, y=y, s=s, s2=s2, Qs=Qs, r_all=r_all, k=k)
+    n, d = X.shape
+    D = M_map.shape[1]
+    M2 = 2 * D + 2
+    G = r_all.shape[1]
+    if (
+        M_map.shape != (d, D)
+        or b_vec.shape != (D,)
+        or Qs.shape != (M2, M2)
+        or r_all.shape != (M2, G)
+        or k.shape != (M2,)
+        or not (y.shape == s.shape == s2.shape == (n,))
+    ):
+        msg = (
+            f"shape mismatch: X {tuple(X.shape)}, M {tuple(M_map.shape)}, Qs {tuple(Qs.shape)}, "
+            f"r_all {tuple(r_all.shape)}, k {tuple(k.shape)}, y/s/s2 "
+            f"{tuple(y.shape)}/{tuple(s.shape)}/{tuple(s2.shape)}"
+        )
+        raise ValueError(msg)
+    lib = load_library()
+    itemsize = X.element_size()
+    rows = next(
+        (r for r in _ROW_CHOICES[X.dtype] if lib.neo_sweep_smem_bytes(D, r, itemsize) <= _SMEM_PER_BLOCK),
+        None,
+    )
+    if rows is None:
+        msg = f"D={D} is too wide: one row of the sweep's Gu block exceeds shared memory"
+        raise ValueError(msg)
+    smem = lib.neo_sweep_smem_bytes(D, rows, itemsize)
+    per_sm = max(1, min(2048 // _THREADS, _SMEM_PER_SM // (smem + 1024)))
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    blocks = min(-(-n // rows), sms * per_sm)
+    Qs_p, ldq = _pad_columns(Qs)
+    r_all_p, ldr = _pad_columns(r_all)
+    loo_err = torch.empty(G, dtype=X.dtype, device=X.device)
+    objective = torch.empty(G, dtype=X.dtype, device=X.device)
+    partials = torch.empty(lib.neo_sweep_partials(G, blocks), dtype=X.dtype, device=X.device)
+    entry = lib.neo_sweep_f32 if X.dtype == torch.float32 else lib.neo_sweep_f64
+    with torch.cuda.device(X.device):
+        status = entry(
+            X.data_ptr(),
+            M_map.data_ptr(),
+            b_vec.data_ptr(),
+            y.data_ptr(),
+            s.data_ptr(),
+            s2.data_ptr(),
+            Qs_p.data_ptr(),
+            ldq,
+            r_all_p.data_ptr(),
+            ldr,
+            k.data_ptr(),
+            loo_err.data_ptr(),
+            objective.data_ptr(),
+            partials.data_ptr(),
+            n,
+            d,
+            D,
+            G,
+            rows,
+            blocks,
+            int(is_classifier),
+            1.0 / math.sqrt(D),
+            float(inv_c0),
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    check_status(lib, status, "fused_loo_sweep")
+    global launches
+    launches += 1
+    return loo_err, objective

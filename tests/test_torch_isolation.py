@@ -1,0 +1,50 @@
+"""The port stands alone: neither ``neo_ls_svm_torch`` nor ``chip_smoke.py`` imports JAX
+or the JAX package, at import time or anywhere in their source."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "neo_ls_svm_tpu")
+SOURCES = sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "neo_ls_svm_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_nothing_of_jax(source: str) -> None:
+    bad = [m for m in _imported_modules(REPO / source) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{source} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax() -> None:
+    modules = [
+        "neo_ls_svm_torch",
+        "neo_ls_svm_torch.models.primal",
+        "neo_ls_svm_torch.ops.cuda.gram",
+        "neo_ls_svm_torch.ops.cuda.sweep",
+        "neo_ls_svm_torch.utils.serialization",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
