@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port (``neo_ls_svm_torch``) on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port (``neo_ls_svm_torch``) on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
 
@@ -6,7 +6,8 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 
 1. ``build``: build (or load) the kernels' library from ``neo_ls_svm_torch/ops/cuda/csrc``.
 2. ``gram``: kernel K1 at n = 131,072, d = 32, D = 512 against its plain PyTorch version
-   (f32 kernel vs f64 plain: max|ΔG|/max|G| ≤ 1e-4; f64 vs f64: ≤ 1e-11), with times.
+   (f32 kernel vs f64 plain: max_ij |ΔG_ij|/√(G_ii·G_jj) ≤ 2e-6; f64 vs f64: ≤ 1e-11),
+   with times.
 3. ``sweep``: kernel K2 on the same rows, with Qs, λ and k from a real eigendecomposition
    of that Gram and r_all over the 1024-point γ grid, for a regressor and a classifier
    (f32 vs f64 plain: max relative error ≤ 1e-4 and the kernel's argmin within 1e-5 of
@@ -18,6 +19,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 5. ``fit_1m``: the main path — ``NeoLSSVM().fit`` on 1,048,576 × 32 float32 rows (the
    streaming route, both kernels), then ``predict`` on 65,536 new rows. The kernels'
    launch counts are set to 0 just before the fit and read just after it.
+   ``main_path_kernels``: each kernel's output from that fit, against its plain version in
+   float64 on the very tensors the fit gave it (the Gram within 1e-5, the sweep as above);
+   then each kernel timed on those tensors. The ``kernels`` line reports these numbers.
 6. ``fit_262k``: the in-memory route at 262,144 rows (no kernel).
 
 Then a ``kernels`` line, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -25,6 +29,7 @@ and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device the
 exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -37,6 +42,7 @@ import torch
 
 from neo_ls_svm_torch import NeoLSSVM
 from neo_ls_svm_torch.models import estimator as est
+from neo_ls_svm_torch.models import primal as primal_mod
 from neo_ls_svm_torch.models.primal import (
     _eigendecompose,
     _sign_vector,
@@ -53,15 +59,14 @@ from neo_ls_svm_torch.utils.metrics import r2_score
 
 LOO_R2_1M_HOST = 0.7437  # the JAX package's host-pre-transform LOO R² at 1M rows
 N_KERNEL, D_IN, D_FEAT = 131_072, 32, 512
+# max_ij |ΔG_ij|/√(G_ii·G_jj), f32 kernel against f64 plain. The f32 error grows with the
+# rows each block sums: 7.2e-7 at 131k rows and 5.5e-6 at the 1M fit's 8× longer sums, on
+# an H100 SXM, where the row split is fixed by the card's 132 SMs.
+GRAM_TOL_F32, GRAM_TOL_F32_1M = 2e-6, 1e-5
 
-# Data-sheet peaks (dense, no sparsity): FP32 and FP64 on the CUDA cores, TFLOP/s, and
-# HBM bandwidth, TB/s. The name torch reports selects the row; the SXM part is the default.
-_PEAKS = {
-    "H100 PCIe": (51.2, 25.6, 2.0),
-    "H100 NVL": (60.0, 30.0, 3.9),
-    "H200": (67.0, 34.0, 4.8),
-    "H100": (67.0, 34.0, 3.35),
-}
+# Data-sheet peaks of the H100 SXM, dense: FP32 on the CUDA cores and HBM3 bandwidth.
+# bound_ms on another card needs that card's peaks, so the script refuses it.
+CARD, FP32_TFLOPS, HBM_TBS = "NVIDIA H100 80GB HBM3", 67.0, 3.35
 
 
 def make_dataset(n: int, d: int, seed: int = 0, dtype=np.float32):
@@ -81,11 +86,10 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def peaks(name: str) -> tuple[str, float, float, float]:
-    for key, (fp32, fp64, hbm) in _PEAKS.items():
-        if key in name:
-            return key, fp32, fp64, hbm
-    return "H100", *_PEAKS["H100"]
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time for ``ops`` FP32 operations and ``nbytes`` of HBM traffic."""
+    ops_ms, bytes_ms = ops / (FP32_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9)
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -114,8 +118,57 @@ def rel_err(ours: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return float(diff.max()), float((diff / ref.double().abs()).max())
 
 
-def phase_gram(dev: torch.device, peak: tuple) -> tuple[dict, dict]:
-    _, fp32_tflops, _, hbm_tbs = peak
+def gram_err(G: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |ΔG|, max_ij |ΔG_ij|/√(ref_ii·ref_jj)) in float64. Each entry is held against
+    the scale Cauchy–Schwarz gives it, so the trig block, about D times smaller than the
+    1/y corner, is held as tightly as that corner."""
+    diff = (G.double() - ref.double()).abs()
+    scale = ref.double().diagonal().sqrt()
+    return float(diff.max()), float((diff / (scale[:, None] * scale[None, :])).max())
+
+
+def gram_timings(args32: list[torch.Tensor]) -> dict:
+    """K1's, its plain version's and the yardstick's times on these f32 inputs, and its bound."""
+    X, M_map, b_map, s2, y = args32
+    n, d = X.shape
+    D = M_map.shape[1]
+    K = 2 * D + 2
+    # The yardstick: one cuBLAS product on a precomputed feature block (FP32, TF32 off).
+    U = X @ M_map + b_map.reshape(1, -1)
+    Y = torch.cat(
+        [torch.cos(U) / math.sqrt(D), torch.sin(U) / math.sqrt(D), torch.ones_like(y)[:, None], y[:, None]],
+        dim=1,
+    )
+    del U
+    s2_col = s2[:, None]
+    record = {
+        "ms": time_ms(lambda: gram_mod.fused_augmented_gram(*args32)),
+        "plain_ms": time_ms(lambda: gram_mod.gram_plain(*args32)),
+        "library_ms": time_ms(lambda: torch.matmul(Y.T, s2_col * Y)),
+    }
+    ops = n * K * (K + 1) + 2 * n * d * D  # upper triangle + phases
+    nbytes = X.element_size() * (n * d + 2 * n + d * D + D + K * K)
+    return {**record, **bound(ops, nbytes), "shape": {"n": n, "d": d, "D": D, "dtype": str(X.dtype)[6:]}}
+
+
+def sweep_timings(args32: list[torch.Tensor], kw: dict) -> dict:
+    """K2's and its plain version's times on these f32 inputs, and its bound."""
+    X, M_map = args32[0], args32[1]
+    n, d = X.shape
+    D = M_map.shape[1]
+    M2, G = args32[7].shape
+    record = {
+        "ms": time_ms(lambda: sweep_mod.fused_loo_sweep(*args32, **kw)),
+        "plain_ms": time_ms(lambda: sweep_mod.sweep_plain(*args32, **kw)),
+        "library_ms": None,  # no single PyTorch call computes the LOO sweep
+    }
+    ops = 2 * n * M2 * M2 + 4 * n * M2 * G + 2 * n * d * D
+    nbytes = X.element_size() * (n * d + 3 * n + d * D + D + M2 * M2 + M2 * G + M2 + 2 * G)
+    shape = {"n": n, "d": d, "D": D, "G": G, "dtype": str(X.dtype)[6:]}
+    return {**record, **bound(ops, nbytes), "shape": shape}
+
+
+def phase_gram(dev: torch.device) -> dict:
     X, y = make_dataset(N_KERNEL, D_IN, seed=0)
     fmap = OrthogonalRandomFourierFeatures(num_features=D_FEAT).fit(X, y)
     M_map, b_map = (a.astype(np.float32) for a in fmap.linear_map())
@@ -129,41 +182,19 @@ def phase_gram(dev: torch.device, peak: tuple) -> tuple[dict, dict]:
     G64 = gram_mod.fused_augmented_gram(*args64)
     plain64 = gram_mod.gram_plain(*args64)
     torch.cuda.synchronize()
-    scale = float(plain64.abs().max())
-    err32 = float((G32.double() - plain64).abs().max())
-    err64 = float((G64 - plain64).abs().max())
-    check(math.isfinite(err32) and err32 / scale <= 1e-4, f"gram f32: max|ΔG|/max|G| = {err32 / scale}")
-    check(err64 / scale <= 1e-11, f"gram f64: max|ΔG|/max|G| = {err64 / scale}")
-    # The yardstick: one cuBLAS product on a precomputed feature block (FP32, TF32 off).
-    U = f32["X"] @ f32["M_map"] + f32["b_map"]
-    inv_sqrt_D = 1.0 / math.sqrt(D_FEAT)
-    Y = torch.cat(
-        [torch.cos(U) * inv_sqrt_D, torch.sin(U) * inv_sqrt_D, torch.ones_like(f32["y"])[:, None], f32["y"][:, None]],
-        dim=1,
-    )
-    s2_col = f32["s2"][:, None]
-    K = 2 * D_FEAT + 2
-    ops = N_KERNEL * K * (K + 1) + 2 * N_KERNEL * D_IN * D_FEAT  # upper triangle + phases
-    nbytes = 4 * (N_KERNEL * D_IN + 2 * N_KERNEL + D_IN * D_FEAT + D_FEAT + K * K)
-    record = {
-        "name": "fused_augmented_gram",
-        "route": "cuda",
-        "source": "neo_ls_svm_torch/ops/cuda/csrc/gram.cu",
-        "replaces": "neo_ls_svm_tpu/ops/pallas/gram.py:61",
-        "max_abs_err": err32,
-        "max_rel_err": err32 / scale,
-        "max_rel_err_f64": err64 / scale,
-        "ms": time_ms(lambda: gram_mod.fused_augmented_gram(*args32)),
+    abs32, rel32 = gram_err(G32, plain64)
+    _, rel64 = gram_err(G64, plain64)
+    check(math.isfinite(rel32) and rel32 <= GRAM_TOL_F32, f"gram f32: max|ΔG_ij|/√(G_ii·G_jj) = {rel32}")
+    check(rel64 <= 1e-11, f"gram f64: max|ΔG_ij|/√(G_ii·G_jj) = {rel64}")
+    emit({
+        "phase": "gram",
+        "max_abs_err": abs32,
+        "max_rel_err": rel32,
+        "max_rel_err_f64": rel64,
         "ms_f64": time_ms(lambda: gram_mod.fused_augmented_gram(*args64)),
-        "plain_ms": time_ms(lambda: gram_mod.gram_plain(*args32)),
-        "library_ms": time_ms(lambda: torch.matmul(Y.T, s2_col * Y)),
-        "bound_ms": max(ops / (fp32_tflops * 1e9), nbytes / (hbm_tbs * 1e9)),
-        "bound_by": "operations" if ops / (fp32_tflops * 1e9) >= nbytes / (hbm_tbs * 1e9) else "bytes",
-        "shape": {"n": N_KERNEL, "d": D_IN, "D": D_FEAT, "dtype": "float32"},
-    }
-    emit({"phase": "gram", **record})
-    del Y, U
-    return record, {"f32": f32, "G32": G32}
+        **gram_timings(args32),
+    })
+    return {"f32": f32, "G32": G32}
 
 
 def _sweep_inputs(G: torch.Tensor, n: int, D: int, num_gammas: int) -> dict:
@@ -205,7 +236,7 @@ def phase_ragged(dev: torch.device) -> None:
             gram_args = [t[k] for k in ("X", "M_map", "b_map", "s2", "y")]
             G_k = gram_mod.fused_augmented_gram(*gram_args)
             G_p = gram_mod.gram_plain(*(a.double() for a in gram_args))
-            gram_rel = float((G_k.double() - G_p).abs().max() / G_p.abs().max())
+            _, gram_rel = gram_err(G_k, G_p)
             sweep_args = [t[k] for k in ("X", "M_map", "b_map", "y", "s", "s2")]
             sweep_args += [sw[k] for k in ("Qs", "r_all", "k")]
             kw = {"is_classifier": False, "inv_c0": sw["inv_c0"]}
@@ -213,7 +244,7 @@ def phase_ragged(dev: torch.device) -> None:
             err_p, obj_p = sweep_mod.sweep_plain(*(a.double() for a in sweep_args), **kw)
             torch.cuda.synchronize()
             sweep_rel = max(rel_err(err_k, err_p)[1], rel_err(obj_k, obj_p)[1])
-            tol_gram, tol_sweep = (1e-4, 1e-4) if dtype == torch.float32 else (1e-11, 1e-10)
+            tol_gram, tol_sweep = (GRAM_TOL_F32, 1e-4) if dtype == torch.float32 else (1e-11, 1e-10)
             tag = f"ragged n={n} d={d} D={D} G={G} {dtype}"
             check(gram_rel <= tol_gram, f"{tag}: gram relative error {gram_rel}")
             check(sweep_rel <= tol_sweep, f"{tag}: sweep relative error {sweep_rel}")
@@ -222,11 +253,24 @@ def phase_ragged(dev: torch.device) -> None:
     emit({"phase": "ragged", "cases": results})
 
 
-def phase_sweep(data: dict, peak: tuple) -> dict:
-    _, fp32_tflops, _, hbm_tbs = peak
+def check_sweep_f32(err32, obj32, perr, pobj, tag: str) -> tuple[float, float, float]:
+    """Hold an f32 sweep against its f64 plain version: (max |Δ|, max relative error,
+    the plain objective's gap at the kernel's argmin, relative to the plain minimum)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for ours, ref in ((err32, perr), (obj32, pobj)):
+        a, r = rel_err(ours, ref)
+        check(math.isfinite(r) and r <= 1e-4, f"sweep {tag} f32: max relative error {r}")
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+    p_min = float(pobj.min())
+    gap = abs(float(pobj[int(torch.argmin(obj32))]) - p_min) / abs(p_min)
+    check(gap <= 1e-5, f"sweep {tag}: kernel argmin objective {gap} from the plain minimum")
+    return worst_abs, worst_rel, gap
+
+
+def phase_sweep(data: dict) -> None:
     f32 = data["f32"]
     worst_abs, worst_rel, worst_rel64, argmin_gap = 0.0, 0.0, 0.0, 0.0
-    times = {}
+    timings = {}
     for task in ("regressor", "classifier"):
         is_classifier = task == "classifier"
         y32 = f32["y"]
@@ -244,44 +288,22 @@ def phase_sweep(data: dict, peak: tuple) -> dict:
         err64, obj64 = sweep_mod.fused_loo_sweep(*args64, **kw)
         perr, pobj = sweep_mod.sweep_plain(*args64, **kw)
         torch.cuda.synchronize()
-        for ours, ref in ((err32, perr), (obj32, pobj)):
-            a, r = rel_err(ours, ref)
-            check(math.isfinite(r) and r <= 1e-4, f"sweep {task} f32: max relative error {r}")
-            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        a, r, gap = check_sweep_f32(err32, obj32, perr, pobj, task)
+        worst_abs, worst_rel, argmin_gap = max(worst_abs, a), max(worst_rel, r), max(argmin_gap, gap)
         for ours, ref in ((err64, perr), (obj64, pobj)):
             _, r = rel_err(ours, ref)
             check(r <= 1e-10, f"sweep {task} f64: max relative error {r}")
             worst_rel64 = max(worst_rel64, r)
-        p_min = float(pobj.min())
-        gap = abs(float(pobj[int(torch.argmin(obj32))]) - p_min) / abs(p_min)
-        check(gap <= 1e-5, f"sweep {task}: kernel argmin objective {gap} from the plain minimum")
-        argmin_gap = max(argmin_gap, gap)
-        times[task] = (
-            time_ms(lambda: sweep_mod.fused_loo_sweep(*args32, **kw)),
-            time_ms(lambda: sweep_mod.sweep_plain(*args32, **kw)),
-        )
-    M2, G = 2 * D_FEAT + 2, 1024
-    ops = 2 * N_KERNEL * M2 * M2 + 4 * N_KERNEL * M2 * G + 2 * N_KERNEL * D_IN * D_FEAT
-    nbytes = 4 * (N_KERNEL * D_IN + 3 * N_KERNEL + D_IN * D_FEAT + D_FEAT + M2 * M2 + M2 * G + M2 + 2 * G)
-    record = {
-        "name": "fused_loo_sweep",
-        "route": "cuda",
-        "source": "neo_ls_svm_torch/ops/cuda/csrc/sweep.cu",
-        "replaces": "neo_ls_svm_tpu/ops/pallas/sweep.py:111",
+        timings[task] = sweep_timings(args32, kw)
+    emit({
+        "phase": "sweep",
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "max_rel_err_f64": worst_rel64,
         "argmin_objective_gap": argmin_gap,
-        "ms": times["regressor"][0],
-        "ms_classifier": times["classifier"][0],
-        "plain_ms": times["regressor"][1],
-        "library_ms": None,  # no single PyTorch call computes the LOO sweep
-        "bound_ms": max(ops / (fp32_tflops * 1e9), nbytes / (hbm_tbs * 1e9)),
-        "bound_by": "operations" if ops / (fp32_tflops * 1e9) >= nbytes / (hbm_tbs * 1e9) else "bytes",
-        "shape": {"n": N_KERNEL, "d": D_IN, "D": D_FEAT, "G": G, "dtype": "float32"},
-    }
-    emit({"phase": "sweep", **record})
-    return record
+        **timings["regressor"],
+        "ms_classifier": timings["classifier"]["ms"],
+    })
 
 
 def phase_parity_small(dev: torch.device) -> None:
@@ -350,16 +372,74 @@ def breakdown_1m(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
     }
 
 
-def phase_fit_1m(dev: torch.device) -> dict:
+@contextlib.contextmanager
+def recording_kernel_calls():
+    """Record the arguments and result of each kernel call the streaming solver makes, so
+    the main path's own tensors can be held against the plain versions after the fit."""
+    calls = {}
+    names = ("fused_augmented_gram", "fused_loo_sweep")
+    originals = {name: getattr(primal_mod, name) for name in names}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[name] = (args, kwargs, out)
+            return out
+
+        return call
+
+    for name, fn in originals.items():
+        setattr(primal_mod, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(primal_mod, name, fn)
+
+
+def phase_main_path_kernels(calls: dict) -> tuple[dict, dict]:
+    """Each kernel's output from the 1M fit against its plain version in float64 on the
+    same tensors, then each kernel timed on them."""
+    g_args, _, G_k = calls["fused_augmented_gram"]
+    g_abs, g_rel = gram_err(G_k, gram_mod.gram_plain(*(a.double() for a in g_args)))
+    check(math.isfinite(g_rel) and g_rel <= GRAM_TOL_F32_1M, f"1M gram f32: max|ΔG_ij|/√(G_ii·G_jj) = {g_rel}")
+    s_args, s_kw, (err_k, obj_k) = calls["fused_loo_sweep"]
+    perr, pobj = sweep_mod.sweep_plain(*(a.double() for a in s_args), **s_kw)
+    s_abs, s_rel, gap = check_sweep_f32(err_k, obj_k, perr, pobj, "1M fit")
+    gram_record = {
+        "name": "fused_augmented_gram",
+        "route": "cuda",
+        "source": "neo_ls_svm_torch/ops/cuda/csrc/gram.cu",
+        "replaces": "neo_ls_svm_tpu/ops/pallas/gram.py:61",
+        "max_abs_err": g_abs,
+        "max_rel_err": g_rel,
+        **gram_timings(list(g_args)),
+    }
+    sweep_record = {
+        "name": "fused_loo_sweep",
+        "route": "cuda",
+        "source": "neo_ls_svm_torch/ops/cuda/csrc/sweep.cu",
+        "replaces": "neo_ls_svm_tpu/ops/pallas/sweep.py:111",
+        "max_abs_err": s_abs,
+        "max_rel_err": s_rel,
+        "argmin_objective_gap": gap,
+        **sweep_timings(list(s_args), s_kw),
+    }
+    emit({"phase": "main_path_kernels", "kernels": [gram_record, sweep_record]})
+    return gram_record, sweep_record
+
+
+def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
     X, y = make_dataset(1 << 20, D_IN, seed=0)
     X_test, y_test = make_dataset(65_536, D_IN, seed=1)
-    gram_mod.launches = 0
-    sweep_mod.launches = 0
-    t0 = time.perf_counter()
-    model = NeoLSSVM(device=dev).fit(X, y)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches}
+    with recording_kernel_calls() as calls:
+        gram_mod.launches = 0
+        sweep_mod.launches = 0
+        t0 = time.perf_counter()
+        model = NeoLSSVM(device=dev).fit(X, y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches}
     check(all(v >= 1 for v in launches.values()), f"the 1M fit did not launch every kernel: {launches}")
     check(abs(model.loo_score_ - LOO_R2_1M_HOST) <= 0.01, f"1M LOO R² {model.loo_score_} vs {LOO_R2_1M_HOST}")
     t0 = time.perf_counter()
@@ -378,8 +458,13 @@ def phase_fit_1m(dev: torch.device) -> dict:
         "predict_rows_per_s": 65_536 / predict_s,
         "test_r2": r2_score(y_test, yhat),
     })
+    gram_record, sweep_record = phase_main_path_kernels(calls)
+    gram_record["launches"] = launches["fused_augmented_gram"]
+    sweep_record["launches"] = launches["fused_loo_sweep"]
+    del calls, model
+    torch.cuda.empty_cache()
     emit({"phase": "fit_1m_breakdown", **breakdown_1m(X, y, dev)})
-    return launches
+    return gram_record, sweep_record
 
 
 def phase_fit_262k(dev: torch.device) -> None:
@@ -402,7 +487,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    peak = peaks(name)
+    if name != CARD:
+        raise RuntimeError(f"bound_ms needs the data-sheet peaks of {name!r}; this script holds {CARD!r}'s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -410,20 +496,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load_library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
           "ptxas": [line.strip() for line in _build.build_log.splitlines() if "Used" in line]})
-    emit({"phase": "peaks", "row": peak[0], "fp32_tflops": peak[1], "fp64_tflops": peak[2],
-          "hbm_tb_s": peak[3], "torch": torch.__version__, "cuda": torch.version.cuda})
-    gram_record, data = phase_gram(dev, peak)
-    sweep_record = phase_sweep(data, peak)
+    data = phase_gram(dev)
+    phase_sweep(data)
     del data
     torch.cuda.empty_cache()
     phase_ragged(dev)
     phase_parity_small(dev)
-    launches = phase_fit_1m(dev)
+    gram_record, sweep_record = phase_fit_1m(dev)
     phase_fit_262k(dev)
-    gram_record["launches"] = launches["fused_augmented_gram"]
-    sweep_record["launches"] = launches["fused_loo_sweep"]
     emit({"kernels": [gram_record, sweep_record]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
