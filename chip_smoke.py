@@ -7,18 +7,21 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 1. ``build``: build (or load) the kernels' library from ``neo_ls_svm_torch/ops/cuda/csrc``.
 2. ``gram``: kernel K1 at n = 131,072, d = 32, D = 512 against its plain PyTorch version
    (f32 kernel vs f64 plain: max_ij |ΔG_ij|/√(G_ii·G_jj) ≤ 2e-6; f64 vs f64: ≤ 1e-11),
-   with times.
+   with times. The f32 call must go through the 3×TF32 tensor-core path and the f64 call
+   through the CUDA-core path (the wrappers count launches by path).
 3. ``sweep``: kernel K2 on the same rows, with Qs, λ and k from a real eigendecomposition
    of that Gram and r_all over the 1024-point γ grid, for a regressor and a classifier
    (f32 vs f64 plain: max relative error ≤ 1e-4 and the kernel's argmin within 1e-5 of
    the plain minimum; f64 vs f64: ≤ 1e-10), with times.
    ``ragged``: both kernels at shapes that are multiples of nothing, and at D = 1800, which
-   takes the sweep's smaller row groups, under the same tolerances.
+   takes the f64 sweep's smaller row groups and shows that the f32 sweep has no
+   shared-memory limit on D, under the same tolerances.
 4. ``parity_small``: a small float64 streaming fit on the card (both kernels) against the
    same fit with ``device="cpu"`` (plain versions): γ equal, LOO arrays at rtol 1e-6.
 5. ``fit_1m``: the main path — ``NeoLSSVM().fit`` on 1,048,576 × 32 float32 rows (the
    streaming route, both kernels), then ``predict`` on 65,536 new rows. The kernels'
-   launch counts are set to 0 just before the fit and read just after it.
+   launch counts are set to 0 just before the fit and read just after it, with the peak
+   device memory of the fit (bounded by the kernels' row chunks, not by n).
    ``main_path_kernels``: each kernel's output from that fit, against its plain version in
    float64 on the very tensors the fit gave it (the Gram within 1e-5, the sweep as above);
    then each kernel timed on those tensors. The ``kernels`` line reports these numbers.
@@ -32,6 +35,7 @@ exits non-zero and prints no result.
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -64,9 +68,10 @@ N_KERNEL, D_IN, D_FEAT = 131_072, 32, 512
 # an H100 SXM, where the row split is fixed by the card's 132 SMs.
 GRAM_TOL_F32, GRAM_TOL_F32_1M = 2e-6, 1e-5
 
-# Data-sheet peaks of the H100 SXM, dense: FP32 on the CUDA cores and HBM3 bandwidth.
-# bound_ms on another card needs that card's peaks, so the script refuses it.
-CARD, FP32_TFLOPS, HBM_TBS = "NVIDIA H100 80GB HBM3", 67.0, 3.35
+# Data-sheet peaks of the H100 SXM, dense: TF32 on the tensor cores, FP32 on the CUDA
+# cores, and HBM3 bandwidth. bound_ms on another card needs that card's peaks, so the
+# script refuses it.
+CARD, TF32_TFLOPS, FP32_TFLOPS, HBM_TBS = "NVIDIA H100 80GB HBM3", 495.0, 67.0, 3.35
 
 
 def make_dataset(n: int, d: int, seed: int = 0, dtype=np.float32):
@@ -82,14 +87,57 @@ def make_dataset(n: int, d: int, seed: int = 0, dtype=np.float32):
     return X, y
 
 
+def _kernel_name(mangled: str) -> str:
+    """The first length-prefixed name ending in ``_kernel`` in an Itanium-mangled symbol."""
+    pos = 0
+    while pos < len(mangled):
+        digits = re.match(r"\d+", mangled[pos:])
+        if digits is None:
+            pos += 1
+            continue
+        start = pos + digits.end()
+        name = mangled[start : start + int(digits.group())]
+        if name.endswith("_kernel"):
+            return name
+        pos = start + len(name)
+    return mangled[:60]
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spilled bytes of each compiled kernel, from nvcc's -Xptxas -v output."""
+    kernels, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            current = {"kernel": _kernel_name(entry.group(1))}
+            kernels.append(current)
+        elif current is not None and "spill stores" in line:
+            current["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif current is not None and "Used" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return kernels
+
+
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time for ``ops`` FP32 operations and ``nbytes`` of HBM traffic."""
-    ops_ms, bytes_ms = ops / (FP32_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9)
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+def bound(ops: float, nbytes: float, workspace_bytes: float) -> dict:
+    """The least time for ``ops`` f32 operations of product and ``nbytes`` of HBM traffic.
+
+    ``bound_ms`` is the f32 path's: its products run in 3×TF32, three tensor-core passes
+    each, so ops at 495/3 TFLOP/s, and its bytes include the row chunks' workspace, written
+    once and read once. ``fp32_bound_ms`` is the CUDA cores' (ops at 67 TFLOP/s, inputs and
+    outputs only), the basis of the earlier kernels' rows.
+    """
+    ops_ms, bytes_ms = ops / (TF32_TFLOPS / 3 * 1e9), (nbytes + workspace_bytes) / (HBM_TBS * 1e9)
+    fp32_ms = max(ops / (FP32_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9))
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "fp32_bound_ms": fp32_ms,
+        "path": _build.PATH_TF32,
+    }
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -148,7 +196,10 @@ def gram_timings(args32: list[torch.Tensor]) -> dict:
     }
     ops = n * K * (K + 1) + 2 * n * d * D  # upper triangle + phases
     nbytes = X.element_size() * (n * d + 2 * n + d * D + D + K * K)
-    return {**record, **bound(ops, nbytes), "shape": {"n": n, "d": d, "D": D, "dtype": str(X.dtype)[6:]}}
+    F = -(-K // 128) * 128
+    workspace = 4 * 2 * (2 * F * (-(-n // 32) * 32))  # sYᵀ hi and lo, written and read
+    shape = {"n": n, "d": d, "D": D, "dtype": str(X.dtype)[6:]}
+    return {**record, **bound(ops, nbytes, workspace), "shape": shape}
 
 
 def sweep_timings(args32: list[torch.Tensor], kw: dict) -> dict:
@@ -164,8 +215,12 @@ def sweep_timings(args32: list[torch.Tensor], kw: dict) -> dict:
     }
     ops = 2 * n * M2 * M2 + 4 * n * M2 * G + 2 * n * d * D
     nbytes = X.element_size() * (n * d + 3 * n + d * D + D + M2 * M2 + M2 * G + M2 + 2 * G)
+    Kp, Np, Gp = -(-M2 // 32) * 32, -(-M2 // 128) * 128, -(-G // 128) * 128
+    # W (hi, lo), Gu∘k and Gu∘Gu (hi, lo) of every row, Qsᵀ and r_allᵀ (hi, lo), each
+    # written once and read once
+    workspace = 4 * 2 * Kp * (6 * n + 2 * Np + 2 * Gp)
     shape = {"n": n, "d": d, "D": D, "G": G, "dtype": str(X.dtype)[6:]}
-    return {**record, **bound(ops, nbytes), "shape": shape}
+    return {**record, **bound(ops, nbytes, workspace), "shape": shape}
 
 
 def phase_gram(dev: torch.device) -> dict:
@@ -178,8 +233,11 @@ def phase_gram(dev: torch.device) -> dict:
     f64 = {k: v.double() for k, v in f32.items()}
     args32 = [f32[k] for k in ("X", "M_map", "b_map", "s2", "y")]
     args64 = [f64[k] for k in ("X", "M_map", "b_map", "s2", "y")]
+    before = dict(gram_mod.path_launches)
     G32 = gram_mod.fused_augmented_gram(*args32)
     G64 = gram_mod.fused_augmented_gram(*args64)
+    took = {p: gram_mod.path_launches[p] - before[p] for p in before}
+    check(took == {_build.PATH_TF32: 1, _build.PATH_FP64: 1}, f"gram: the f32 and f64 calls took {took}")
     plain64 = gram_mod.gram_plain(*args64)
     torch.cuda.synchronize()
     abs32, rel32 = gram_err(G32, plain64)
@@ -215,10 +273,16 @@ def _sweep_inputs(G: torch.Tensor, n: int, D: int, num_gammas: int) -> dict:
 
 def phase_ragged(dev: torch.device) -> None:
     """Both kernels at shapes that are multiples of nothing (the masked edges), and at a
-    width that takes the sweep's smaller row groups, against their plain versions."""
+    width that takes the f64 sweep's smaller row groups, against their plain versions.
+    Each case also reports how far the f32 plain version's sweep is from float64, the
+    yardstick for the f32 kernel's error."""
     results = []
+    # At D = 1800 the f32 case takes 20,011 rows: at 4,099 rows the leverages of 2M = 3602
+    # features come so close to 1 that even the f32 plain version is far off float64
+    # (its sweep_plain_f32_rel_err), a property of the data, not of the kernel.
     for n, d, D, G, dtypes in ((3001, 7, 100, 1001, (torch.float32, torch.float64)),
-                               (4099, 5, 1800, 130, (torch.float64,))):
+                               (4099, 5, 1800, 130, (torch.float64,)),
+                               (20011, 5, 1800, 130, (torch.float32,))):
         gen = np.random.RandomState(n)
         X = gen.randn(n, d)
         M_map = gen.randn(d, D)
@@ -230,6 +294,12 @@ def phase_ragged(dev: torch.device) -> None:
         t64 = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()}
         G64 = gram_mod.gram_plain(*(t64[k] for k in ("X", "M_map", "b_map", "s2", "y")))
         sw64 = _sweep_inputs(G64, n, D, G)
+        plain_args = [t64[k] for k in ("X", "M_map", "b_map", "y", "s", "s2")]
+        plain_args += [sw64[k] for k in ("Qs", "r_all", "k")]
+        plain_kw = {"is_classifier": False, "inv_c0": sw64["inv_c0"]}
+        plain64 = sweep_mod.sweep_plain(*plain_args, **plain_kw)
+        plain32 = sweep_mod.sweep_plain(*(a.float() for a in plain_args), **plain_kw)
+        plain32_rel = max(rel_err(a, b)[1] for a, b in zip(plain32, plain64))
         for dtype in dtypes:
             t = {k: v.to(dtype) for k, v in t64.items()}
             sw = {k: (v.to(dtype) if isinstance(v, torch.Tensor) else v) for k, v in sw64.items()}
@@ -249,7 +319,8 @@ def phase_ragged(dev: torch.device) -> None:
             check(gram_rel <= tol_gram, f"{tag}: gram relative error {gram_rel}")
             check(sweep_rel <= tol_sweep, f"{tag}: sweep relative error {sweep_rel}")
             results.append({"n": n, "d": d, "D": D, "G": G, "dtype": str(dtype).split(".")[-1],
-                            "gram_rel_err": gram_rel, "sweep_rel_err": sweep_rel})
+                            "gram_rel_err": gram_rel, "sweep_rel_err": sweep_rel,
+                            "sweep_plain_f32_rel_err": plain32_rel})
     emit({"phase": "ragged", "cases": results})
 
 
@@ -284,8 +355,11 @@ def phase_sweep(data: dict) -> None:
         args32 += [sw32[k] for k in ("Qs", "r_all", "k")]
         args64 = [a.double() for a in args32]
         kw = {"is_classifier": is_classifier, "inv_c0": sw32["inv_c0"]}
+        before = dict(sweep_mod.path_launches)
         err32, obj32 = sweep_mod.fused_loo_sweep(*args32, **kw)
         err64, obj64 = sweep_mod.fused_loo_sweep(*args64, **kw)
+        took = {p: sweep_mod.path_launches[p] - before[p] for p in before}
+        check(took == {_build.PATH_TF32: 1, _build.PATH_FP64: 1}, f"sweep {task}: the f32 and f64 calls took {took}")
         perr, pobj = sweep_mod.sweep_plain(*args64, **kw)
         torch.cuda.synchronize()
         a, r, gap = check_sweep_f32(err32, obj32, perr, pobj, task)
@@ -432,15 +506,24 @@ def phase_main_path_kernels(calls: dict) -> tuple[dict, dict]:
 def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
     X, y = make_dataset(1 << 20, D_IN, seed=0)
     X_test, y_test = make_dataset(65_536, D_IN, seed=1)
+    torch.cuda.reset_peak_memory_stats(dev)
     with recording_kernel_calls() as calls:
-        gram_mod.launches = 0
-        sweep_mod.launches = 0
+        for mod in (gram_mod, sweep_mod):
+            mod.launches = 0
+            mod.path_launches = dict.fromkeys(mod.path_launches, 0)
         t0 = time.perf_counter()
         model = NeoLSSVM(device=dev).fit(X, y)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches}
+        paths = {"fused_augmented_gram": dict(gram_mod.path_launches),
+                 "fused_loo_sweep": dict(sweep_mod.path_launches)}
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
     check(all(v >= 1 for v in launches.values()), f"the 1M fit did not launch every kernel: {launches}")
+    check(
+        all(p[_build.PATH_TF32] == launches[k] for k, p in paths.items()),
+        f"the 1M fit's f32 kernels did not all take the 3×TF32 path: {paths}",
+    )
     check(abs(model.loo_score_ - LOO_R2_1M_HOST) <= 0.01, f"1M LOO R² {model.loo_score_} vs {LOO_R2_1M_HOST}")
     t0 = time.perf_counter()
     yhat = model.predict(X_test)
@@ -453,6 +536,8 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
         "loo_score": model.loo_score_,
         "gamma": model.γ_,
         "launches": launches,
+        "launches_by_path": paths,
+        "peak_device_bytes": peak_bytes,
         "predict_rows": 65_536,
         "predict_s": predict_s,
         "predict_rows_per_s": 65_536 / predict_s,
@@ -497,8 +582,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "torch": torch.__version__,
-          "cuda": torch.version.cuda,
-          "ptxas": [line.strip() for line in _build.build_log.splitlines() if "Used" in line]})
+          "cuda": torch.version.cuda, "ptxas": ptxas_report(_build.build_log)})
     data = phase_gram(dev)
     phase_sweep(data)
     del data

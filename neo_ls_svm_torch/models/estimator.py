@@ -259,8 +259,10 @@ class NeoLSSVM(BaseEstimator):
             zeros = np.zeros_like(C_n)
             C_emb = _to_device(np.block([[C_n, zeros], [zeros, C_n]]), device)
         if self.precision == "high":
-            # IEEE float32 products, as the JAX package's Precision.HIGHEST. precision="fast"
-            # runs the same IEEE products in this port (TF32 for it waits, ROADMAP.md).
+            # f32 accuracy, as the JAX package's Precision.HIGHEST: cuBLAS products in IEEE
+            # float32 (TF32 off), the hand-written f32 kernels in 3×TF32 (three tensor-core
+            # passes, as HIGHEST's multi-pass bf16). precision="fast" runs the same products
+            # in this port (a one-pass variant waits, ROADMAP.md).
             torch.backends.cuda.matmul.allow_tf32 = False
             if torch.backends.cuda.matmul.allow_tf32:
                 msg = "TF32 matmuls are still enabled; precision='high' needs IEEE float32."

@@ -1,0 +1,31 @@
+// The feature build of K1 and K2's f32 paths (features.cu), written once per element into
+// a device workspace already split into TF32 hi and lo planes for the 3×TF32 products.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace neo {
+
+enum class FeatureLayout {
+  // K1: sYᵀ, feature-major, out[plane][f][r], f over [cos U | sin U | 1 | y]/√D (the 1 and
+  // y unscaled), every row scaled by s = √s², so that G = (sY)ᵀ(sY).
+  kGramT,
+  // K2: W, row-major, out[plane][r][f], f over [cos U/√D, 1, sin U/√D, 0].
+  kSweepW,
+};
+
+// Builds rows r0 .. r0+rows_pad-1 of the chunk (zero past n) at leading dimension ld, and
+// every padding column up to F, into out (hi plane) and out + plane (lo plane).
+// rows_pad is a multiple of 32.
+cudaError_t launch_features(FeatureLayout layout, const float* X, const float* Mmap,
+                            const float* bmap, const float* s2, const float* y, float* out,
+                            int64_t plane, int ld, int64_t r0, int64_t n, int rows_pad, int d,
+                            int D, int F, float inv_sqrt_d, cudaStream_t stream);
+
+// out[plane][c][r] = split(in[r][c]) for the rows × cols row-major matrix in, zero up to
+// cols_pad × rows_pad (both multiples of 32): the B operand of a product against in.
+cudaError_t launch_split_transpose(const float* in, int rows, int cols, float* out,
+                                   int rows_pad, int cols_pad, cudaStream_t stream);
+
+}  // namespace neo

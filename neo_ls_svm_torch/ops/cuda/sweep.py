@@ -11,19 +11,40 @@ import math
 
 import torch
 
-from neo_ls_svm_torch.ops.cuda._build import check_operands, check_status, load_library
+from neo_ls_svm_torch.ops.cuda._build import PATH_FP64, PATH_TF32, check_operands, check_status, load_library
 
 launches = 0  # Kernel launches of fused_loo_sweep (its plain version is not counted).
+path_launches = {PATH_TF32: 0, PATH_FP64: 0}  # the same launches, by kernel path
 
+_TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh
+_KBLOCK = 32  # kBK in csrc/gemm_sm90.cuh
+# float32: rows per chunk. The Gu and sweep products then launch 1152 and 1024 blocks a
+# chunk at 2M = 1026 and G = 1024: 8.7 and 7.8 waves of the H100's 132 SMs.
+_CHUNK_ROWS = 16384
 _SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory one H100 block may use
 _SMEM_PER_SM = 233_472  # shared memory of one SM (1 KB of it reserved per block)
 _THREADS = 256  # kThreads in csrc/common.cuh
-_ROW_CHOICES = {torch.float32: (16, 8, 4, 2), torch.float64: (8, 4, 2)}
+_F64_ROW_CHOICES = (8, 4, 2)  # rows per group of csrc/sweep_fp64.cu, widest first
+
+
+def sweep_plan(n: int, D: int, G: int) -> dict[str, int]:
+    """The float32 kernels' row chunk and workspace for n rows, D features and G values of γ.
+
+    The workspace holds the chunk's W (hi, lo) and Gu∘k, Gu∘Gu (hi, lo), Qsᵀ and r_allᵀ
+    (hi, lo) and the chunk's row-tile partials: it is bounded by the chunk, not by n.
+    """
+    M2 = 2 * D + 2
+    Kp = -(-M2 // _KBLOCK) * _KBLOCK
+    Np = -(-M2 // _TILE) * _TILE
+    Gp = -(-G // _TILE) * _TILE
+    chunk = min(_CHUNK_ROWS, -(-max(n, 1) // _TILE) * _TILE)
+    floats = 6 * chunk * Kp + 2 * Np * Kp + 2 * Gp * Kp + 2 * (chunk // _TILE) * Gp
+    return {"chunk": chunk, "workspace_bytes": 4 * floats}
 
 
 def _pad_columns(a: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``a`` with its columns zero-padded to a multiple of 4 (the kernel's 16-byte loads),
-    and the padded leading dimension."""
+    """``a`` with its columns zero-padded to a multiple of 4 (the float64 kernel's
+    16-byte loads), and the padded leading dimension."""
     pad = (-a.shape[1]) % 4
     return (torch.nn.functional.pad(a, (0, pad)) if pad else a), a.shape[1] + pad
 
@@ -119,24 +140,33 @@ def fused_loo_sweep(
         )
         raise ValueError(msg)
     lib = load_library()
-    itemsize = X.element_size()
-    rows = next(
-        (r for r in _ROW_CHOICES[X.dtype] if lib.neo_sweep_smem_bytes(D, r, itemsize) <= _SMEM_PER_BLOCK),
-        None,
-    )
-    if rows is None:
-        msg = f"D={D} is too wide: one row of the sweep's Gu block exceeds shared memory"
-        raise ValueError(msg)
-    smem = lib.neo_sweep_smem_bytes(D, rows, itemsize)
-    per_sm = max(1, min(2048 // _THREADS, _SMEM_PER_SM // (smem + 1024)))
-    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-    blocks = min(-(-n // rows), sms * per_sm)
-    Qs_p, ldq = _pad_columns(Qs)
-    r_all_p, ldr = _pad_columns(r_all)
     loo_err = torch.empty(G, dtype=X.dtype, device=X.device)
     objective = torch.empty(G, dtype=X.dtype, device=X.device)
-    partials = torch.empty(lib.neo_sweep_partials(G, blocks), dtype=X.dtype, device=X.device)
-    entry = lib.neo_sweep_f32 if X.dtype == torch.float32 else lib.neo_sweep_f64
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    inv_sqrt_d = 1.0 / math.sqrt(D)
+    if X.dtype == torch.float32:
+        plan = sweep_plan(n, D, G)
+        workspace = torch.empty(plan["workspace_bytes"] // 4, dtype=X.dtype, device=X.device)
+        operands = (Qs.data_ptr(), r_all.data_ptr(), k.data_ptr(), loo_err.data_ptr(), objective.data_ptr())
+        args = (*operands, workspace.data_ptr(), n, d, D, G, plan["chunk"], int(is_classifier))
+        entry = lib.neo_sweep_f32
+    else:
+        fits = [r for r in _F64_ROW_CHOICES if lib.neo_sweep_f64_smem_bytes(D, r) <= _SMEM_PER_BLOCK]
+        rows = fits[0] if fits else None
+        if rows is None:
+            msg = f"D={D} is too wide for float64: one row of the sweep's Gu block exceeds shared memory"
+            raise ValueError(msg)
+        smem = lib.neo_sweep_f64_smem_bytes(D, rows)
+        per_sm = max(1, min(2048 // _THREADS, _SMEM_PER_SM // (smem + 1024)))
+        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+        blocks = min(-(-n // rows), sms * per_sm)
+        Qs_p, ldq = _pad_columns(Qs)
+        r_all_p, ldr = _pad_columns(r_all)
+        partials = torch.empty(lib.neo_sweep_f64_partials(G, blocks), dtype=X.dtype, device=X.device)
+        operands = (Qs_p.data_ptr(), ldq, r_all_p.data_ptr(), ldr, k.data_ptr())
+        operands += (loo_err.data_ptr(), objective.data_ptr(), partials.data_ptr())
+        args = (*operands, n, d, D, G, rows, blocks, int(is_classifier))
+        entry = lib.neo_sweep_f64
     with torch.cuda.device(X.device):
         status = entry(
             X.data_ptr(),
@@ -145,26 +175,13 @@ def fused_loo_sweep(
             y.data_ptr(),
             s.data_ptr(),
             s2.data_ptr(),
-            Qs_p.data_ptr(),
-            ldq,
-            r_all_p.data_ptr(),
-            ldr,
-            k.data_ptr(),
-            loo_err.data_ptr(),
-            objective.data_ptr(),
-            partials.data_ptr(),
-            n,
-            d,
-            D,
-            G,
-            rows,
-            blocks,
-            int(is_classifier),
-            1.0 / math.sqrt(D),
+            *args,
+            inv_sqrt_d,
             float(inv_c0),
-            torch.cuda.current_stream(X.device).cuda_stream,
+            stream,
         )
     check_status(lib, status, "fused_loo_sweep")
     global launches
     launches += 1
+    path_launches[PATH_TF32 if X.dtype == torch.float32 else PATH_FP64] += 1
     return loo_err, objective

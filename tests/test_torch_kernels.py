@@ -1,10 +1,14 @@
-"""The plain versions of the port's CUDA kernels match the JAX package's Pallas kernels.
+"""The plain versions of the port's CUDA kernels match the JAX package's Pallas kernels,
+and the float32 kernels' 3×TF32 arithmetic keeps f32 accuracy.
 
 The same float64 operands (made from a seed) go through the Pallas kernel in interpret
 mode, the plain-XLA reference, and the port's plain PyTorch version, at rtol 1e-10. On
 CPU tensors the wrappers must take the plain version and launch nothing. (The CUDA
 kernels themselves run only on the card: ``chip_smoke.py`` holds them against these
-plain versions there.)
+plain versions there.) A torch emulation of the kernels' 3×TF32 products, with the same
+hi/lo split and k-blocks, is held against the plain versions in float64 under
+``chip_smoke.py``'s f32 limits, and one-pass TF32 must break them. The kernels' chunk
+plans must keep their workspace independent of n.
 """
 
 import jax.numpy as jnp
@@ -26,15 +30,15 @@ RTOL = 1e-10
 N, d, D = 512, 8, 64
 
 
-def _operands(seed: int, classifier: bool = False) -> dict[str, np.ndarray]:
+def _operands(seed: int, classifier: bool = False, n: int = N) -> dict[str, np.ndarray]:
     gen = np.random.RandomState(seed)
-    X = gen.randn(N, d)
+    X = gen.randn(n, d)
     M_map = gen.randn(d, D)
     b_map = gen.uniform(0, 2 * np.pi, (1, D))
-    y = np.sin(X[:, 0]) + 0.5 * X[:, 1] * X[:, 2] + 0.1 * gen.randn(N)
+    y = np.sin(X[:, 0]) + 0.5 * X[:, 1] * X[:, 2] + 0.1 * gen.randn(n)
     if classifier:
         y = np.where(y > 0, 1.0, -1.0)
-    w = gen.rand(N) + 0.25
+    w = gen.rand(n) + 0.25
     s = w / w.sum()
     return {"X": X, "M_map": M_map, "b_map": b_map, "y": y, "s": s, "s2": s * s}
 
@@ -43,14 +47,14 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float64))
 
 
-def _sweep_operands(ops: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+def _sweep_operands(ops: dict[str, np.ndarray], n: int = N) -> dict[str, np.ndarray]:
     """Qs, k and r_all from a real eigendecomposition of the operands' Gram."""
     G_aug = np.asarray(
         augmented_gram_reference(*(jnp.asarray(ops[k]) for k in ("X", "M_map", "b_map", "s2", "y")))
     )
     G_W, b_vec = (np.asarray(a) for a in w_basis_from_augmented(jnp.asarray(G_aug), D))
     M = D + 1
-    inv_c0 = float(N * M)
+    inv_c0 = float(n * M)
     lam, Q = np.linalg.eigh(inv_c0 * np.asarray(embed_from_gram_blocks(jnp.asarray(G_W), M)))
     Qs = np.concatenate([np.ones(M), -np.ones(M)])[:, None] * Q
     r_all = 1.0 / (gamma_grid(np.float64)[None, :] + lam[:, None])
@@ -121,3 +125,114 @@ def test_wrappers_reject_other_devices() -> None:
     X = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tgram.fused_augmented_gram(X, X, X, X, X)
+
+
+# The f32 limits of chip_smoke.py: per-entry Gram error max|ΔG_ij|/√(G_ii·G_jj), and the
+# sweep's max relative error.
+GRAM_TOL_F32, SWEEP_TOL_F32 = 2e-6, 1e-4
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32``: half of the 13 dropped bits' range added, then cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product(A: torch.Tensor, B: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """A·B as the kernels' product loop computes it: the contraction in k-blocks of 32,
+    each one run of lo·hi + hi·lo + hi·hi (hi·hi alone for ``passes=1``) in float32 on
+    hi = tf32(v), lo = tf32(v − hi), and the runs added into a float32 sum in order."""
+    pad = (-A.shape[1]) % 32
+    A = torch.nn.functional.pad(A, (0, pad))
+    B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+    blocks = A.shape[1] // 32
+    A_hi = _tf32(A)
+    B_hi = _tf32(B)
+    A_b = A_hi.reshape(A.shape[0], blocks, 32).transpose(0, 1)
+    B_b = B_hi.reshape(blocks, 32, B.shape[1])
+    runs = torch.bmm(A_b, B_b)
+    if passes == 3:
+        A_lo = _tf32(A - A_hi).reshape(A.shape[0], blocks, 32).transpose(0, 1)
+        B_lo = _tf32(B - B_hi).reshape(blocks, 32, B.shape[1])
+        runs = torch.bmm(A_lo, B_b) + torch.bmm(A_b, B_lo) + runs
+    total = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32)
+    for run in runs:
+        total += run
+    return total
+
+
+def _features32(ops: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos U/√D and sin U/√D in float32, U = X·M + b."""
+    U = ops["X"] @ ops["M_map"] + ops["b_map"].reshape(1, -1)
+    inv_sqrt_D = 1.0 / np.sqrt(ops["M_map"].shape[1])
+    return torch.cos(U) * inv_sqrt_D, torch.sin(U) * inv_sqrt_D
+
+
+def _gram_emulated(ops: dict[str, torch.Tensor], passes: int) -> torch.Tensor:
+    """K1's float32 path: G = (sY)ᵀ(sY), s = √s², as one product over the rows."""
+    cos, sin = _features32(ops)
+    ones = torch.ones((cos.shape[0], 1))
+    sY = torch.sqrt(ops["s2"])[:, None] * torch.cat([cos, sin, ones, ops["y"][:, None]], dim=1)
+    return _product(sY.T.contiguous(), sY, passes)
+
+
+@pytest.mark.parametrize(("passes", "within_limit"), [(3, True), (1, False)])
+def test_3xtf32_gram_keeps_the_f32_limit_and_one_pass_breaks_it(passes: int, within_limit: bool) -> None:
+    n = 4096
+    ops64 = {k: _t(v) for k, v in _operands(85, n=n).items()}
+    ops32 = {k: v.float() for k, v in ops64.items()}
+    ref = tgram.gram_plain(*(ops64[k] for k in ("X", "M_map", "b_map", "s2", "y")))
+    G = _gram_emulated(ops32, passes).double()
+    scale = ref.diagonal().sqrt()
+    err = float(((G - ref).abs() / (scale[:, None] * scale[None, :])).max())
+    assert (err <= GRAM_TOL_F32) == within_limit, err
+
+
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_3xtf32_sweep_keeps_the_f32_limit_and_the_argmin(task: str) -> None:
+    is_classifier = task == "classification"
+    n = 2048
+    ops = _operands(86, classifier=is_classifier, n=n)
+    sw = _sweep_operands(ops, n=n)
+    t64 = {k: _t(v) for k, v in {**ops, **{k: sw[k] for k in ("Qs", "r_all", "k")}}.items()}
+    t32 = {k: v.float() for k, v in t64.items()}
+    names = ("X", "M_map", "b_map", "y", "s", "s2", "Qs", "r_all", "k")
+    ref_err, ref_obj = tsweep.sweep_plain(
+        *(t64[k] for k in names), is_classifier=is_classifier, inv_c0=sw["inv_c0"]
+    )
+    # K2's float32 path: W, Gu = W·Qs, then num and lev against r_all, all in 3×TF32.
+    cos, sin = _features32(t32)
+    ones = torch.ones((n, 1))
+    W = torch.cat([cos, ones, sin, 0 * ones], dim=1)
+    Gu = _product(W, t32["Qs"])
+    num = sw["inv_c0"] * _product(Gu * t32["k"][None, :], t32["r_all"])
+    lev = sw["inv_c0"] * t32["s2"][:, None] * _product(Gu * Gu, t32["r_all"])
+    y = t32["y"][:, None]
+    e = (num - y) / (1.0 - lev)
+    if is_classifier:
+        e = torch.where(((y > 0) & (e > 0)) | ((y < 0) & (e < 0)), torch.zeros_like(e), e)
+    abs_e = torch.abs(e)
+    err = t32["s"] @ abs_e
+    obj = err
+    if is_classifier:
+        obj = obj + t32["s"] @ (abs_e >= 1).float() + t32["s"] @ torch.clamp(abs_e - 1, min=0.0)
+    for ours, ref in ((err, ref_err), (obj, ref_obj)):
+        rel = float(((ours.double() - ref).abs() / ref.abs()).max())
+        assert rel <= SWEEP_TOL_F32, rel
+    # The argmin as chip_smoke.py holds it: the float64 objective at the f32 argmin is
+    # within 1e-5 of the float64 minimum. (Here the classifier's objective is flat to
+    # 4e-9 over its first γ values, below f32's resolution, so the index itself may move.)
+    p_min = float(ref_obj.min())
+    assert abs(float(ref_obj[int(torch.argmin(obj))]) - p_min) <= 1e-5 * abs(p_min)
+
+
+@pytest.mark.parametrize("kernel", ["gram", "sweep"])
+def test_f32_workspace_is_bounded_by_the_row_chunk(kernel: str) -> None:
+    def plan(n: int) -> dict[str, int]:
+        return tgram.gram_plan(n, 512) if kernel == "gram" else tsweep.sweep_plan(n, 512, 1024)
+
+    assert plan(2**14) == plan(2**20)
+    assert plan(2**20)["chunk"] <= 16384
+    small = plan(3001)
+    assert 3001 <= small["chunk"] < 3001 + 128
+    assert small["workspace_bytes"] < plan(2**20)["workspace_bytes"]
