@@ -18,14 +18,30 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
    shared-memory limit on D, under the same tolerances.
 4. ``parity_small``: a small float64 streaming fit on the card (both kernels) against the
    same fit with ``device="cpu"`` (plain versions): γ equal, LOO arrays at rtol 1e-6.
-5. ``fit_1m``: the main path — ``NeoLSSVM().fit`` on 1,048,576 × 32 float32 rows (the
-   streaming route, both kernels), then ``predict`` on 65,536 new rows. The kernels'
-   launch counts are set to 0 just before the fit and read just after it, with the peak
-   device memory of the fit (bounded by the kernels' row chunks, not by n).
+5. ``fit_1m``: the main path — the default ``NeoLSSVM().fit`` on 1,048,576 × 32 float32
+   rows (the device pre-transform, then the streaming route with both kernels), then
+   ``predict`` on 65,536 new rows. The fit must report ``pre_transform_ == "device"``. Its
+   LOO R² depends on the draw of the Fourier frequencies, so ``fit_1m_draws`` fits 7 more
+   ``random_state`` values and holds the mean within 0.01 of 0.7533, the JAX package's
+   value on this route at this size, and the default fit within 0.03. The
+   kernels' launch counts are set to 0 just before the fit and read just after it, with the
+   peak device memory of the fit (bounded by the kernels' row chunks, not by n).
    ``main_path_kernels``: each kernel's output from that fit, against its plain version in
    float64 on the very tensors the fit gave it (the Gram within 1e-5, the sweep as above);
    then each kernel timed on those tensors. The ``kernels`` line reports these numbers.
-6. ``fit_262k``: the in-memory route at 262,144 rows (no kernel).
+   ``fit_1m_breakdown``: the fit's steps timed one by one (upload, device pre-transform,
+   solve, the pull of the result), and one whole fit under torch.profiler for the device's
+   idle share. ``fit_1m_host``: the same data with ``pre_transform="host"``, LOO R² within
+   0.01 of 0.7437, with the host pre-transform's seconds.
+6. ``pretransform``: ``device_pre_transform`` alone on those rows, timed; its shift and scale
+   against the host ``AffineNormalizer`` on the same equal-mass bins (1e-4 of the scale),
+   and the rows in each of the 8 bins.
+7. ``fit_262k``: the in-memory route at 262,144 rows (no kernel), default estimator: the
+   payload is exactly 32 MiB, so the device pre-transform; LOO R² held to 0.7619 likewise;
+   and its host-route twin. ``transfer``: the same fit with ``transfer="bfloat16"`` and
+   ``"int8"``, LOO R² within 0.03 of the float32 fit.
+8. ``fit_dual``: n = 1024, d = 32, float64, a regressor and a classifier on the card
+   against ``device="cpu"``: γ equal, α̂ and ``predict`` at rtol 1e-8.
 
 Then a ``kernels`` line, the card's name and power limit as ``nvidia-smi`` reports them,
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -56,12 +72,29 @@ from neo_ls_svm_torch.models.primal import (
 )
 from neo_ls_svm_torch.ops.cuda import _build
 from neo_ls_svm_torch.ops.cuda import gram as gram_mod
+from neo_ls_svm_torch.ops import affine as affine_mod
 from neo_ls_svm_torch.ops.cuda import sweep as sweep_mod
 from neo_ls_svm_torch.ops.orff import OrthogonalRandomFourierFeatures
+from neo_ls_svm_torch.ops.pretransform_device import (
+    DEVICE_PRETRANSFORM_BINS,
+    _target_codes,
+    device_pre_transform,
+)
 from neo_ls_svm_torch.ops.quantizer import sample_bins_quantized_ecdf
 from neo_ls_svm_torch.utils.metrics import r2_score
+from neo_ls_svm_torch.utils.transfer import upload_rows
 
-LOO_R2_1M_HOST = 0.7437  # the JAX package's host-pre-transform LOO R² at 1M rows
+# The JAX package's LOO R² on the same data (accuracy anchors): the 1M fit with the device
+# and with the host pre-transform, and the 262k fit on its default (device) route.
+LOO_R2_1M_DEVICE, LOO_R2_1M_HOST, LOO_R2_262K = 0.7533, 0.7437, 0.7619
+# On the device route the LOO R² moves with the random draw of the 512 Fourier frequencies:
+# over random_state 0–6 and 42 its standard deviation is 0.011 at both sizes (NVIDIA H100
+# 80GB HBM3), and the JAX package's anchors are one draw each of another generator. So the
+# mean over these draws is held to the anchor within 0.01, and one fit within 0.03.
+SEEDS, ONE_DRAW_TOL = (0, 1, 2, 3, 4, 5, 6), 0.03
+# The separator's settings, as the default estimator passes them to device_pre_transform.
+PT_KW = {"num_bins": DEVICE_PRETRANSFORM_BINS, "num_features": 512, "edge_sample_size": 384,
+         "edge_search_multiplier": 4, "rank_threshold": 2e-2, "is_classifier": False}
 N_KERNEL, D_IN, D_FEAT = 131_072, 32, 512
 # max_ij |ΔG_ij|/√(G_ii·G_jj), f32 kernel against f64 plain. The f32 error grows with the
 # rows each block sums: 7.2e-7 at 131k rows and 5.5e-6 at the 1M fit's 8× longer sums, on
@@ -402,32 +435,50 @@ def phase_parity_small(dev: torch.device) -> None:
           "loo_score": card.loo_score_, "max_abs_diff": worst})
 
 
+def pt_generator(dev: torch.device) -> torch.Generator:
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(42)
+    return generator
+
+
+def hold_to_anchor(X, y, dev: torch.device, default_loo: float, anchor: float, tag: str) -> dict:
+    """Fit the device route under the other random_state values and hold the mean LOO R² of
+    all draws, the default fit's included, to the anchor."""
+    by_state = {42: default_loo}
+    for seed in SEEDS:
+        by_state[seed] = NeoLSSVM(device=dev, random_state=seed).fit(X, y).loo_score_
+    mean = statistics.fmean(by_state.values())
+    check(abs(default_loo - anchor) <= ONE_DRAW_TOL, f"{tag}: LOO R² {default_loo} vs {anchor}")
+    check(abs(mean - anchor) <= 0.01, f"{tag}: mean LOO R² {mean} over {len(by_state)} draws vs {anchor}")
+    return {"loo_score_by_random_state": by_state, "loo_score_mean": mean,
+            "loo_score_sd": statistics.stdev(by_state.values()), "loo_anchor": anchor}
+
+
+def timed(fn):
+    """(seconds on the host clock until the device has finished, the result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def breakdown_1m(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
-    """Where the 1M fit's time goes: the host pre-transform alone, then the device solve
-    alone, by wall clock and under torch.profiler (device time by kernel)."""
-    t0 = time.perf_counter()
-    sample_bins_quantized_ecdf(y)
-    quantizer_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    M_map, b_map = OrthogonalRandomFourierFeatures().fit(X, y).linear_map()
-    host_s = time.perf_counter() - t0
-    args = [
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
-        for a in (X, M_map, b_map, y, np.ones_like(y), gamma_grid(np.float32))
-    ]
-    kw = {"is_classifier": False, "row_chunk": est.STREAMING_ROW_CHUNK}
-    primal_fit_streaming(*args, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    primal_fit_streaming(*args, **kw)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
+    """Where the default 1M fit's time goes: its steps one by one by wall clock, each ended
+    by a synchronise, then one whole fit under torch.profiler (device time by kernel, and
+    the device's idle share over the whole fit)."""
+    ones = np.ones_like(y)
+    upload_s, (X_d, y_d, s_d, g_d) = timed(
+        lambda: (upload_rows(X, "float32", dev), *(est._to_device(a, dev) for a in (y, ones, gamma_grid(np.float32))))
+    )
+    pt_s, pt = timed(lambda: device_pre_transform(X_d, y_d, s_d, pt_generator(dev), **PT_KW))
+    kw = {"is_classifier": False, "row_chunk": est.STREAMING_ROW_CHUNK, "num_samples": len(y)}
+    solve_s, result = timed(lambda: primal_fit_streaming(X_d, pt["M"], pt["b"], y_d, s_d, g_d, None, **kw))
+    pull_s, _ = timed(lambda: {k: v.cpu().numpy() for k, v in {**result, **pt}.items()})
+    del X_d, result, pt
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        primal_fit_streaming(*args, **kw)
-        torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
+        profiled_s, _ = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
     kernels = []  # device kernels only: an operator's device time is its kernels' again
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
@@ -436,14 +487,52 @@ def breakdown_1m(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
     kernels.sort(key=lambda k: -k["ms"])
     device_ms = sum(k["ms"] for k in kernels)
     return {
-        "host_pretransform_s": host_s,
-        "of_which_target_quantizer_s": quantizer_s,
+        "upload_s": upload_s,
+        "device_pretransform_s": pt_s,
         "solve_s": solve_s,
-        "profiled_solve_s": profiled_s,
-        "device_kernel_ms": device_ms,
+        "pull_s": pull_s,
+        "profiled_fit_s": profiled_s,
+        "device_busy_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / (profiled_s * 1e3),
-        "top_kernels": kernels[:10],
+        "top_kernels": kernels[:12],
     }
+
+
+def phase_pretransform(X: np.ndarray, y: np.ndarray, dev: torch.device) -> None:
+    """device_pre_transform alone at 1M × 32 float32: its time, its bins, and its shift and
+    scale against the host normalizer on the same bins."""
+    X_d, y_d = upload_rows(X, "float32", dev), est._to_device(y, dev)
+    w_d = torch.ones_like(y_d)
+    run = lambda: device_pre_transform(X_d, y_d, w_d, pt_generator(dev), **PT_KW)  # noqa: E731
+    run()
+    seconds = statistics.median(timed(run)[0] for _ in range(5))
+    pt = run()
+    codes, totals = _target_codes(y_d, w_d, num_bins=PT_KW["num_bins"], is_classifier=False)
+    codes = codes.cpu().numpy()
+    masks = [codes == b for b in range(PT_KW["num_bins"])]
+    weights = np.ones_like(y)
+
+    def equal_mass_bins(_y, _weights):  # what affine._bin_by_target returns, for these codes
+        return masks, [float(m.sum()) for m in masks], [weights[np.newaxis, m] / m.sum() for m in masks]
+
+    original = affine_mod._bin_by_target
+    affine_mod._bin_by_target = equal_mass_bins
+    try:
+        t0 = time.perf_counter()
+        host = affine_mod.AffineNormalizer().fit(X, y)
+        host_s = time.perf_counter() - t0
+    finally:
+        affine_mod._bin_by_target = original
+    shift, scale = pt["pt_shift"].cpu().numpy(), pt["pt_scale"].cpu().numpy()
+    shift_err = float(np.max(np.abs(shift - host.shift_) / np.abs(host.scale_)))
+    scale_err = float(np.max(np.abs(scale - host.scale_) / np.abs(host.scale_)))
+    check(shift_err <= 1e-4 and scale_err <= 1e-4, f"pretransform: shift {shift_err}, scale {scale_err} off the host's")
+    finite = all(bool(torch.isfinite(v).all()) for v in pt.values())
+    check(finite and pt["M"].shape == (D_IN, D_FEAT), "pretransform: bad operands")
+    emit({"phase": "pretransform", "n": len(y), "d": D_IN, "dtype": "float32", "device_pretransform_s": seconds,
+          "host_normalizer_same_bins_s": host_s, "shift_err_over_scale": shift_err, "scale_rel_err": scale_err,
+          "rows_per_bin": [int(m.sum()) for m in masks], "bin_mass": totals.cpu().tolist(),
+          "kept_columns": int((pt["pt_A"] != 0).any(dim=0).sum())})
 
 
 @contextlib.contextmanager
@@ -524,7 +613,7 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
         all(p[_build.PATH_TF32] == launches[k] for k, p in paths.items()),
         f"the 1M fit's f32 kernels did not all take the 3×TF32 path: {paths}",
     )
-    check(abs(model.loo_score_ - LOO_R2_1M_HOST) <= 0.01, f"1M LOO R² {model.loo_score_} vs {LOO_R2_1M_HOST}")
+    check(model.pre_transform_ == "device", f"the default 1M fit took the {model.pre_transform_} pre-transform")
     t0 = time.perf_counter()
     yhat = model.predict(X_test)
     predict_s = time.perf_counter() - t0
@@ -533,6 +622,8 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
         "phase": "fit_1m",
         "n": 1 << 20,
         "fit_s": fit_s,
+        "pre_transform_": model.pre_transform_,
+        "transfer_": model.transfer_,
         "loo_score": model.loo_score_,
         "gamma": model.γ_,
         "launches": launches,
@@ -543,26 +634,83 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
         "predict_rows_per_s": 65_536 / predict_s,
         "test_r2": r2_score(y_test, yhat),
     })
+    emit({"phase": "fit_1m_draws", **hold_to_anchor(X, y, dev, model.loo_score_, LOO_R2_1M_DEVICE, "fit_1m")})
     gram_record, sweep_record = phase_main_path_kernels(calls)
     gram_record["launches"] = launches["fused_augmented_gram"]
     sweep_record["launches"] = launches["fused_loo_sweep"]
     del calls, model
     torch.cuda.empty_cache()
     emit({"phase": "fit_1m_breakdown", **breakdown_1m(X, y, dev)})
+    phase_fit_1m_host(X, y, X_test, y_test, dev)
+    phase_pretransform(X, y, dev)
     return gram_record, sweep_record
 
 
-def phase_fit_262k(dev: torch.device) -> None:
-    X, y = make_dataset(262_144, D_IN, seed=0)
+def phase_fit_1m_host(X, y, X_test, y_test, dev: torch.device) -> None:
+    """The same 1M rows with the host pre-transform (bit-equal to the reference's)."""
+    fit_s, model = timed(lambda: NeoLSSVM(device=dev, pre_transform="host").fit(X, y))
+    check(model.pre_transform_ == "host", "fit_1m_host took the device pre-transform")
+    check(abs(model.loo_score_ - LOO_R2_1M_HOST) <= 0.01, f"1M host LOO R² {model.loo_score_} vs {LOO_R2_1M_HOST}")
     t0 = time.perf_counter()
-    model = NeoLSSVM(device=dev).fit(X, y)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    sample_bins_quantized_ecdf(y)
+    quantizer_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     OrthogonalRandomFourierFeatures().fit(X, y)  # the fit's host pre-transform, alone
+    host_s = time.perf_counter() - t0
+    emit({"phase": "fit_1m_host", "n": len(y), "fit_s": fit_s, "pre_transform_": model.pre_transform_,
+          "host_pretransform_s": host_s, "of_which_target_quantizer_s": quantizer_s,
+          "loo_score": model.loo_score_, "gamma": model.γ_, "test_r2": r2_score(y_test, model.predict(X_test))})
+
+
+def phase_fit_262k(dev: torch.device) -> None:
+    """The in-memory route at a payload of exactly 32 MiB: the default estimator (device
+    pre-transform), its host-route twin, and the narrow transfer modes."""
+    X, y = make_dataset(262_144, D_IN, seed=0)
+    before = gram_mod.launches, sweep_mod.launches
+    fit_s, model = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
+    check((gram_mod.launches, sweep_mod.launches) == before, "the in-memory route launched a kernel")
+    check(model.pre_transform_ == "device", f"the default 262k fit took the {model.pre_transform_} pre-transform")
+    draws = hold_to_anchor(X, y, dev, model.loo_score_, LOO_R2_262K, "fit_262k")
+    host_fit_s, host = timed(lambda: NeoLSSVM(device=dev, pre_transform="host").fit(X, y))
+    t0 = time.perf_counter()
+    OrthogonalRandomFourierFeatures().fit(X, y)  # the host twin's pre-transform, alone
     emit({"phase": "fit_262k", "n": 262_144, "route": "inmemory", "fit_s": fit_s,
-          "host_pretransform_s": time.perf_counter() - t0, "loo_score": model.loo_score_,
-          "gamma": model.γ_})
+          "pre_transform_": model.pre_transform_, "loo_score": model.loo_score_, "gamma": model.γ_,
+          "host_route_fit_s": host_fit_s, "host_pretransform_s": time.perf_counter() - t0,
+          "host_route_loo_score": host.loo_score_, **draws})
+    X_test, y_test = make_dataset(65_536, D_IN, seed=1)
+    modes = {"float32": {"fit_s": fit_s, "loo_score": model.loo_score_, "test_r2": r2_score(y_test, model.predict(X_test))}}
+    for transfer in ("bfloat16", "int8"):
+        seconds, lossy = timed(lambda: NeoLSSVM(device=dev, transfer=transfer).fit(X, y))  # noqa: B023
+        check((lossy.pre_transform_, lossy.transfer_) == ("device", transfer), f"transfer={transfer}: wrong plan")
+        check(abs(lossy.loo_score_ - model.loo_score_) <= 0.03,
+              f"transfer={transfer}: LOO R² {lossy.loo_score_} vs float32 {model.loo_score_}")
+        modes[transfer] = {"fit_s": seconds, "loo_score": lossy.loo_score_,
+                           "test_r2": r2_score(y_test, lossy.predict(X_test))}
+    emit({"phase": "transfer", "n": 262_144, "modes": modes})
+
+
+def phase_fit_dual(dev: torch.device) -> None:
+    """The dual route (n = 1024, float64) on the card against the same fit on the CPU."""
+    X, y = make_dataset(1024 + 4096, D_IN, seed=3, dtype=np.float64)
+    X_test = X[1024:]
+    X, y = X[:1024], y[:1024]
+    records = {}
+    for task, target in (("regressor", y), ("classifier", np.where(y > np.median(y), 1, 0))):
+        fit_s, card = timed(lambda: NeoLSSVM(device=dev).fit(X, target))  # noqa: B023
+        host = NeoLSSVM(device="cpu").fit(X, target)
+        check(card.dual_ and card.pre_transform_ == "host", f"dual {task}: not the dual route")
+        check(card.γ_ == host.γ_, f"dual {task}: γ {card.γ_} on the card vs {host.γ_} on the CPU")
+        np.testing.assert_allclose(card.α̂_, host.α̂_, rtol=1e-8, atol=1e-12, err_msg=f"dual {task}: α̂")
+        predict_s, yhat = timed(lambda: card.predict(X_test))  # noqa: B023
+        if task == "classifier":
+            check(bool(np.array_equal(yhat, host.predict(X_test))), "dual classifier: labels differ from the CPU's")
+        else:
+            np.testing.assert_allclose(yhat, host.predict(X_test), rtol=1e-8, atol=1e-12, err_msg="dual predict")
+        np.testing.assert_allclose(card.predict_std(X_test), host.predict_std(X_test), rtol=1e-6, atol=1e-10)
+        records[task] = {"fit_s": fit_s, "predict_s": predict_s, "gamma": card.γ_, "loo_score": card.loo_score_,
+                         "alpha_max_abs_diff": float(np.max(np.abs(card.α̂_ - host.α̂_)))}
+    emit({"phase": "fit_dual", "n": 1024, "d": D_IN, "dtype": "float64", "predict_rows": 4096, **records})
 
 
 def main() -> int:
@@ -591,6 +739,7 @@ def main() -> int:
     phase_parity_small(dev)
     gram_record, sweep_record = phase_fit_1m(dev)
     phase_fit_262k(dev)
+    phase_fit_dual(dev)
     emit({"kernels": [gram_record, sweep_record]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

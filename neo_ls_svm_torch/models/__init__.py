@@ -1,1 +1,1 @@
-"""Model layer: the estimator and the primal solver."""
+"""Model layer: the estimator, its routing policy, and the primal and dual solvers."""

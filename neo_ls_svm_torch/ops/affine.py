@@ -1,4 +1,5 @@
-"""Supervised affine pre-transform stack (host NumPy fit).
+"""Supervised affine pre-transform stack (host NumPy fit), and the normalizer's per-bin
+statistics on tensors for the on-device pre-transform.
 
 Re-implements the reference's inheritance chain ``AffineFeatureMap`` →
 ``AffineNormalizer`` → ``AffineSeparator`` (ref ``_affine_feature_map.py``,
@@ -8,9 +9,10 @@ cut is data-dependent), while *transforms* are linear maps that fold into the do
 feature map and run on the GPU as part of one product (see
 :meth:`AffineFeatureMap.linear_form`).
 
-A copy of the host path of ``neo_ls_svm_tpu.ops.affine``: the normalizer always computes
-its per-bin statistics with NumPy here (the JAX package's device statistics wait for the
-port of the device pre-transform).
+A copy of the host path of ``neo_ls_svm_tpu.ops.affine``: the host normalizer computes its
+per-bin statistics with NumPy at every size. :func:`grouped_weighted_median` and
+:func:`_normalizer_stats_device` are the same statistics on tensors, sort-free and with no
+host read; ``ops/pretransform_device.py`` calls them.
 
 RNG parity: the separator draws its edge samples from ``np.random.RandomState`` in the
 same call order as the reference, so fitted parameters match bit-for-bit for a given
@@ -21,6 +23,7 @@ from typing import Any
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
 from neo_ls_svm_torch.ops.quantizer import sample_bins_quantized_ecdf
 from neo_ls_svm_torch.ops.weighted_quantile import weighted_quantile
@@ -232,6 +235,141 @@ def _bin_by_target(
     totals = [np.sum(weights[m]) for m in masks]
     probs = [weights[np.newaxis, m] / np.sum(weights[m]) for m in masks]
     return masks, totals, probs
+
+
+def _float_to_ordered_int(x: torch.Tensor) -> torch.Tensor:
+    """Map finite floats to integers with the same total order (IEEE-754 bit trick).
+
+    Non-negative floats compare like their (sign-preserving) bit patterns; negative
+    floats compare in reverse, fixed by reflecting them below zero. ±0.0 collide,
+    which is correct: they are equal as floats.
+    """
+    int_dtype = torch.int64 if x.dtype == torch.float64 else torch.int32
+    bits = x.contiguous().view(int_dtype)
+    return torch.where(bits >= 0, bits, torch.iinfo(int_dtype).min - bits)
+
+
+def _ordered_int_to_float(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    bits = torch.where(o >= 0, o, torch.iinfo(o.dtype).min - o)
+    return bits.view(dtype)
+
+
+def grouped_weighted_median(
+    X: torch.Tensor,  # (n, d)
+    w: torch.Tensor,  # (n,) nonnegative; 0 excludes a row
+    codes: torch.Tensor,  # (n,) integer bin codes; codes >= num_bins are excluded
+    num_bins: int,
+) -> torch.Tensor:
+    """(num_bins, d) weighted medians per (bin, column), sort-free and with no host read.
+
+    Same averaged lower/upper ECDF convention as :func:`weighted_quantile` (ref
+    ``_weighted_quantile.py:56-75``), reconstructed from run-boundary masses instead
+    of per-entry cumulative sums: a bisection in float-bit space (33 steps in f32, 65 in
+    f64) finds, per (bin, column), the smallest member value v_hi whose cumulative weight
+    reaches half the bin mass; the two ECDF interpolations then only need mass(<v_hi),
+    mass(≤v_hi), the run count at v_hi, and the neighbouring member values. All bin-grouped
+    masses are one-hot products (n,B)ᵀ@(n,d). They must run in IEEE arithmetic: with TF32
+    on, a mass that straddles the half mass flips the bisection. Within a tie run the
+    entry weight is taken as the run average, which coincides with any sort order for
+    uniform weights.
+
+    The final boundary masses are always taken in float64: mass_le − mass_lt is a single
+    entry's weight, a cancellation of two sums of about W/2 each.
+    """
+    d = X.shape[1]
+    compute, acc = X.dtype, torch.float64
+    onehot = codes[:, None] == torch.arange(num_bins, dtype=codes.dtype, device=X.device)[None, :]
+    w_oh = onehot.to(compute) * w[:, None].to(compute)  # (n, B) per-bin weighted indicator
+    W = w_oh.sum(dim=0)  # (B,)
+    t = 0.5 * W
+    xo = _float_to_ordered_int(X)  # (n, d) ordered ints, same width as the dtype
+    int_dtype = xo.dtype
+    lo = torch.full((num_bins, d), torch.iinfo(int_dtype).min, dtype=int_dtype, device=X.device)
+    hi = torch.full((num_bins, d), torch.iinfo(int_dtype).max, dtype=int_dtype, device=X.device)
+    codes_safe = codes.clamp(0, num_bins - 1).long()  # invalid rows carry w = 0
+    for _ in range(65 if X.dtype == torch.float64 else 33):
+        # Overflow-safe floor average: the ordered ints span the full integer range.
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        mass = w_oh.T @ (xo <= mid[codes_safe]).to(compute)  # (B, d)
+        ge = mass >= t[:, None]
+        lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+    v_hi = _ordered_int_to_float(hi, X.dtype).to(acc)  # (B, d) crossing member value
+
+    hi_rows = hi[codes_safe]
+    le = (xo <= hi_rows).to(acc)
+    lt = (xo < hi_rows).to(acc)
+    w_oh_acc = w_oh.to(acc)
+    mass_le = w_oh_acc.T @ le
+    mass_lt = w_oh_acc.T @ lt
+    cnt_run = onehot.to(acc).T @ (le - lt)
+    # Neighbouring member values around the v_hi run, per bin (num_bins is small).
+    v_lo = torch.empty((num_bins, d), dtype=compute, device=X.device)
+    v_next = torch.empty((num_bins, d), dtype=compute, device=X.device)
+    for b in range(num_bins):
+        in_bin = ((codes == b) & (w > 0))[:, None]
+        v_lo[b] = torch.where(in_bin & (xo < hi[b][None, :]), X, -torch.inf).amax(dim=0)
+        v_next[b] = torch.where(in_bin & (xo > hi[b][None, :]), X, torch.inf).amin(dim=0)
+    v_lo, v_next = v_lo.to(acc), v_next.to(acc)
+    t_acc = t.to(acc)[:, None]
+    w_edge = (mass_le - mass_lt) / cnt_run.clamp_min(1.0)
+    safe_edge = w_edge.clamp_min(torch.finfo(acc).tiny)
+    has_lower = mass_lt > 0
+    has_next = (W.to(acc)[:, None] - mass_le) > 0
+    # interp(t, p_upper, v): crossing interval is (mass_lt, mass_lt + w_edge] between
+    # the last member below the run and the run's first entry; beyond it → v_hi.
+    frac_u = (t_acc - mass_lt) / safe_edge
+    upper = torch.where((~has_lower) | (frac_u >= 1.0), v_hi, v_lo + frac_u * (v_hi - v_lo))
+    # interp(t, p_lower, v): crossing interval is (mass_le - w_edge, mass_le] between
+    # the run's last entry and the next member above; before it → v_hi.
+    frac_l = (t_acc - (mass_le - w_edge)) / safe_edge
+    lower = torch.where((~has_next) | (frac_l <= 0.0), v_hi, v_hi + frac_l * (v_next - v_hi))
+    return (0.5 * (upper + lower)).to(X.dtype)
+
+
+def _normalizer_stats_device(
+    X: torch.Tensor,  # (n, d) feature rows
+    w: torch.Tensor,  # (n,) sample weights, 0 on padding rows
+    codes: torch.Tensor,  # (n,) integer bin codes; excluded rows carry code >= num_bins
+    bin_totals: torch.Tensor,  # (num_bins,) total bin weights (0 for empty bins)
+    *,
+    num_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-bin weighted medians/MADs and the pairwise shift/scale accumulation, on tensors.
+
+    Counterpart of the host loop in :meth:`AffineNormalizer.fit` (itself mirroring ref
+    ``_affine_normalizer.py:80-114``): medians come from the sort-free bisection in
+    :func:`grouped_weighted_median`, the mean absolute deviations from one one-hot
+    product, and the O(B²) bin-pair accumulation is a masked broadcast.
+    """
+    eps = torch.finfo(X.dtype).eps
+    bin_valid = bin_totals > 0  # (B,)
+    med = grouped_weighted_median(X, w, codes, num_bins)  # (B, d)
+    med = torch.where(bin_valid[:, None], med, 0.0)  # scrub empty-bin values before reuse
+    codes_safe = codes.clamp(0, num_bins - 1).long()
+    onehot = codes[:, None] == torch.arange(num_bins, dtype=codes.dtype, device=X.device)[None, :]
+    w_oh = onehot.to(X.dtype) * w[:, None]
+    w_sum = w_oh.sum(dim=0).clamp_min(eps)  # (B,)
+    sigma = (w_oh.T @ (X - med[codes_safe]).abs()) / w_sum[:, None]
+    # Pairwise accumulation over valid bins i < j.
+    diff = med[None, :, :] - med[:, None, :]  # (i, j, d): μⱼ - μᵢ
+    sum_sigma = (sigma[:, None, :] + sigma[None, :, :]).clamp_min(eps)
+    separability = diff.abs() / sum_sigma
+    pair_tot = bin_totals[:, None, None] + bin_totals[None, :, None]
+    w_pair = torch.sqrt(pair_tot * (0.5 + separability))
+    alpha = (sigma[:, None, :] / sum_sigma).clamp(1e-6, 1.0 - 1e-6)
+    index = torch.arange(num_bins, device=X.device)
+    pair_valid = (
+        (index[:, None] < index[None, :]) & bin_valid[:, None] & bin_valid[None, :]
+    )[:, :, None]
+    w_pair = torch.where(pair_valid, w_pair, 0.0)
+    shift = (w_pair * (med[:, None, :] + alpha * diff)).sum(dim=(0, 1))
+    scale = (w_pair * sum_sigma).sum(dim=(0, 1))
+    sign = (w_pair * torch.sign(diff)).sum(dim=(0, 1))
+    total_w = w_pair.sum(dim=(0, 1))
+    shift = shift / total_w
+    scale = scale / total_w
+    scale = torch.where(torch.sign(sign / total_w) < 0, -scale, scale)
+    return shift, scale
 
 
 class AffineSeparator(AffineNormalizer):

@@ -1,10 +1,14 @@
 """Weighted quantiles.
 
-Host NumPy counterpart of the reference's weighted quantile
-(``_weighted_quantile.py:35-77``), bit-compatible with it; the host-side supervised
-pre-transform fit uses it, where exact parity matters. A copy of the host half of
-``neo_ls_svm_tpu.ops.weighted_quantile``; the device version waits for the port of the
-device pre-transform.
+Two implementations of the reference's weighted quantile (``_weighted_quantile.py:35-77``):
+
+- :func:`weighted_quantile`: host NumPy, bit-compatible with the reference; the host-side
+  supervised pre-transform fit uses it, where exact parity matters.
+- :func:`weighted_quantile_torch`: the same convention on tensors, on whatever device they
+  lie; the on-device pre-transform uses it to cut the target into equal-mass bins.
+
+Counterparts of ``weighted_quantile`` and ``weighted_quantile_jax`` of
+``neo_ls_svm_tpu.ops.weighted_quantile``.
 
 It uses the reference's averaged lower/upper ECDF convention
 ``(interp(q, p_lower, a) + interp(q, p_upper, a)) / 2`` (rationale at
@@ -14,6 +18,7 @@ standard midpoint convention does not).
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
 FloatTensor = npt.NDArray[np.floating]
 FloatVector = npt.NDArray[np.floating]
@@ -133,3 +138,49 @@ def weighted_quantile(
     result = np.reshape(result, lead_shape[:-1] + (len(q_arr),))
     result = np.moveaxis(result, -1, axis)
     return result
+
+
+def _interp_rows(q: torch.Tensor, p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Row-wise linear interpolation of the points (p[r], a[r]) at every q: (R, Q).
+
+    ``torch`` has no ``interp``. This one follows ``jnp.interp``: the bracket is the last
+    knot at or below q (``searchsorted`` from the right, so among tied knots the last
+    wins), a zero-width bracket returns its left value, and q outside the knots takes the
+    end values.
+    """
+    n = p.shape[1]
+    qq = q.expand(p.shape[0], -1).contiguous()
+    i = torch.searchsorted(p.contiguous(), qq, right=True).clamp(1, n - 1)
+    p_lo, p_hi = torch.gather(p, 1, i - 1), torch.gather(p, 1, i)
+    a_lo, a_hi = torch.gather(a, 1, i - 1), torch.gather(a, 1, i)
+    dx = p_hi - p_lo
+    np_dtype = np.float64 if p.dtype == torch.float64 else np.float32
+    flat = dx.abs() <= float(np.spacing(np.finfo(np_dtype).eps))
+    f = torch.where(flat, a_lo, a_lo + ((qq - p_lo) / torch.where(flat, torch.ones_like(dx), dx)) * (a_hi - a_lo))
+    f = torch.where(qq < p[:, :1], a[:, :1], f)
+    return torch.where(qq > p[:, -1:], a[:, -1:], f)
+
+
+def weighted_quantile_torch(
+    a: torch.Tensor, w: torch.Tensor, q: "torch.Tensor | float", axis: int = 0
+) -> torch.Tensor:
+    """Weighted quantiles along ``axis`` on the tensors' device, with no host read.
+
+    Same averaged lower/upper ECDF convention as :func:`weighted_quantile`.
+    """
+    a = torch.movedim(a, axis, -1)
+    w = torch.movedim(w, axis, -1).expand(a.shape)
+    lead_shape = a.shape
+    rows_a = a.reshape(-1, lead_shape[-1])
+    rows_w = w.reshape(-1, lead_shape[-1])
+    order = torch.argsort(rows_a, dim=1, stable=True)
+    rows_a = torch.gather(rows_a, 1, order)
+    rows_w = torch.gather(rows_w, 1, order)
+    cw = torch.cumsum(rows_w, dim=1)
+    total = cw[:, -1:]
+    p_lower = (cw - rows_w) / total
+    p_upper = cw / total
+    q = torch.atleast_1d(torch.as_tensor(q, dtype=a.dtype, device=a.device))[None, :]
+    result = 0.5 * (_interp_rows(q, p_lower, rows_a) + _interp_rows(q, p_upper, rows_a))
+    result = result.reshape(lead_shape[:-1] + (q.shape[1],))
+    return torch.movedim(result, -1, axis)

@@ -1,1 +1,2 @@
-"""Host-side utilities: estimator base classes, validation, metrics, state dicts."""
+"""Host-side utilities: estimator base classes, validation, metrics, state dicts, and the
+narrow host→device uploads."""

@@ -3,9 +3,11 @@
 ``from_jax_state_dict`` reads the nested dict of NumPy arrays and scalars that
 ``neo_ls_svm_tpu.utils.serialization.model_to_state_dict`` produces (params, fitted
 ``attrs`` such as ``_M_map``, ``_b_map``, ``beta_emb_``, ``_eig_Qs``, ``_eig_lam``,
-``γ_``, ``_inv_c0``, ``classes_``, components and ``meta``) and returns a fitted port
-``NeoLSSVM`` that predicts what the JAX model predicts. It reads the dict's plain data
-only; nothing of the JAX package is imported.
+``γ_``, ``_inv_c0``, ``classes_`` for a primal model, ``α̂_``, ``_chol``, ``X_`` for a dual
+one, ``pre_transform_`` and ``transfer_``, components and ``meta``) and returns a fitted
+port ``NeoLSSVM`` that predicts what the JAX model predicts, whichever route and
+pre-transform fitted it. It reads the dict's plain data only; nothing of the JAX package is
+imported.
 """
 
 from typing import Any
@@ -13,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from neo_ls_svm_torch.models.estimator import NeoLSSVM, _not_ported
+from neo_ls_svm_torch.models.estimator import NeoLSSVM
 from neo_ls_svm_torch.ops.affine import AffineFeatureMap, AffineNormalizer, AffineSeparator
 from neo_ls_svm_torch.ops.orff import OrthogonalRandomFourierFeatures, RandomFourierFeatures
 from neo_ls_svm_torch.utils.base import BaseEstimator
@@ -44,8 +46,6 @@ def _restore_component(state: dict[str, Any]) -> BaseEstimator:
 def from_jax_state_dict(state: dict[str, Any], device: str | torch.device = "cuda") -> NeoLSSVM:
     """Build a fitted port ``NeoLSSVM`` on ``device`` from a JAX package state dict."""
     attrs = state["attrs"]
-    if attrs.get("dual_", False):
-        raise _not_ported("A dual-route model", "Queue 1 item 6, dual route")
     params = {k: v for k, v in state["params"].items() if k in NeoLSSVM._get_param_names()}
     for name, comp_state in state.get("component_params", {}).items():
         params[name] = _restore_component(comp_state)
@@ -55,10 +55,14 @@ def from_jax_state_dict(state: dict[str, Any], device: str | torch.device = "cud
     model.y_dtype_ = np.dtype(state["meta"]["y_dtype"])
     for name, value in attrs.items():
         setattr(model, name, value)
-    fmap_state = state["components"].get("primal_feature_map_")
-    if fmap_state is not None and fmap_state["class"] in _REGISTRY:
+    for name in ("primal_feature_map_", "dual_feature_map_"):
+        fmap_state = state["components"].get(name)
+        if fmap_state is None:
+            continue
+        if name == "primal_feature_map_" and fmap_state["class"] not in _REGISTRY:
+            continue  # serving a primal model needs _M_map and _b_map only
         fmap = _restore_component(fmap_state)
         if "affine" in fmap_state:
             fmap.affine_feature_map = _restore_component(fmap_state["affine"])
-        model.primal_feature_map_ = fmap
+        setattr(model, name, fmap)
     return model

@@ -35,6 +35,11 @@ def test_importing_the_port_loads_no_jax() -> None:
     modules = [
         "neo_ls_svm_torch",
         "neo_ls_svm_torch.models.primal",
+        "neo_ls_svm_torch.models.dual",
+        "neo_ls_svm_torch.models.routing",
+        "neo_ls_svm_torch.ops.kernels",
+        "neo_ls_svm_torch.ops.pretransform_device",
+        "neo_ls_svm_torch.utils.transfer",
         "neo_ls_svm_torch.ops.cuda.gram",
         "neo_ls_svm_torch.ops.cuda.sweep",
         "neo_ls_svm_torch.utils.serialization",
