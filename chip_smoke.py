@@ -43,6 +43,30 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 8. ``fit_dual``: n = 1024, d = 32, float64, a regressor and a classifier on the card
    against ``device="cpu"``: γ equal, α̂ and ``predict`` at rtol 1e-8.
 
+9. ``native``: the host loops' C++ library (``neo_ls_svm_torch/native``) built with the system
+   compiler; ``pav_fit`` on 1,048,576 points and the quantizer's knot scan on the 1M fit's
+   target against the Python loops, bit-equal, with both times. Fails if the library did
+   not load: on this machine the native loops must be the ones that run.
+10. ``calibration``: a default ``NeoLSSVM()`` classifier on the 1M rows with the target cut
+    at its median (kernel launches counted from 0). Seconds of the fit, of the first
+    ``predict_proba`` on 65,536 held-out rows (which fits the isotonic calibrator: sort,
+    PAV) and of a repeat. Probabilities in [0, 1], rows summing to 1, non-decreasing in
+    ``decision_function``; held-out Brier score below the base rate's; the tensor lane
+    within 1e-6 of the NumPy lane; the same state restored with ``device="cpu"`` within 1e-4
+    in ŷ, and in the probabilities within 1e-5 in the mean and 0.01 at the worst row (the
+    calibrator's steps magnify the last bits of a float32 ŷ).
+11. ``conformal``: the default 1M regressor. ``predict_interval(coverage=0.9)`` on the
+    held-out rows, first call (the LPs) and repeat; empirical coverage within [0.87, 0.95];
+    ``predict_quantiles`` at seven quantiles non-decreasing on every row inside the convex
+    hull of the calibration rows (beyond it the reference's planes may cross; counted);
+    ``conformal_method="smooth"`` on the same split: the exact pinball loss of its planes
+    within 0.5% of the exact LP's, and the Newton solve's seconds; the tensor lane within
+    rtol 1e-5 of the NumPy lane, and its rows per second.
+12. ``state_dict``: ``from_state_dict(to_state_dict(m))`` on the card, and a pickle round
+    trip, predict bit for bit what ``m`` does (decision, std, probabilities or quantiles).
+13. ``tensor_io``: ``fit`` on a CUDA tensor against ``fit`` on the same NumPy rows, three
+    fits each in turns: γ equal, LOO R² within 1e-6, the seconds and peak device memory of each.
+
 Then a ``kernels`` line, the card's name and power limit as ``nvidia-smi`` reports them,
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -51,17 +75,20 @@ exits non-zero and prints no result.
 import contextlib
 import json
 import math
+import pickle
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from neo_ls_svm_torch import NeoLSSVM
+from neo_ls_svm_torch import NeoLSSVM, native
 from neo_ls_svm_torch.models import estimator as est
+from neo_ls_svm_torch.models.isotonic import _pav_python, pool_adjacent_violators
 from neo_ls_svm_torch.models import primal as primal_mod
 from neo_ls_svm_torch.models.primal import (
     _eigendecompose,
@@ -80,7 +107,7 @@ from neo_ls_svm_torch.ops.pretransform_device import (
     _target_codes,
     device_pre_transform,
 )
-from neo_ls_svm_torch.ops.quantizer import sample_bins_quantized_ecdf
+from neo_ls_svm_torch.ops.quantizer import hist_quantized_ecdf, sample_bins_quantized_ecdf
 from neo_ls_svm_torch.utils.metrics import r2_score
 from neo_ls_svm_torch.utils.transfer import upload_rows
 
@@ -92,6 +119,10 @@ LOO_R2_1M_DEVICE, LOO_R2_1M_HOST, LOO_R2_262K = 0.7533, 0.7437, 0.7619
 # 80GB HBM3), and the JAX package's anchors are one draw each of another generator. So the
 # mean over these draws is held to the anchor within 0.01, and one fit within 0.03.
 SEEDS, ONE_DRAW_TOL = (0, 1, 2, 3, 4, 5, 6), 0.03
+# The smooth conformal solver minimises the LP's objective under more constraints (its planes
+# are ordered on an inflated box around the calibration rows, not on those rows only), so its
+# exact pinball loss is never below the LP's, and above it by what the box costs on the data.
+SMOOTH_GAP_LIMIT = 0.05
 # The separator's settings, as the default estimator passes them to device_pre_transform.
 PT_KW = {"num_bins": DEVICE_PRETRANSFORM_BINS, "num_features": 512, "edge_sample_size": 384,
          "edge_search_multiplier": 4, "rank_threshold": 2e-2, "is_classifier": False}
@@ -151,8 +182,16 @@ def ptxas_report(log: str) -> list[dict]:
     return kernels
 
 
+RECORDS = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.jsonl"
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """Print a record as one JSON line, and keep it in ``chiprun_out/chip_smoke.jsonl``."""
+    line = json.dumps(record)
+    print(line, flush=True)
+    RECORDS.parent.mkdir(exist_ok=True)
+    with RECORDS.open("a") as out:
+        out.write(line + "\n")
 
 
 def bound(ops: float, nbytes: float, workspace_bytes: float) -> dict:
@@ -597,9 +636,7 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
     X_test, y_test = make_dataset(65_536, D_IN, seed=1)
     torch.cuda.reset_peak_memory_stats(dev)
     with recording_kernel_calls() as calls:
-        for mod in (gram_mod, sweep_mod):
-            mod.launches = 0
-            mod.path_launches = dict.fromkeys(mod.path_launches, 0)
+        reset_launches()
         t0 = time.perf_counter()
         model = NeoLSSVM(device=dev).fit(X, y)
         torch.cuda.synchronize()
@@ -713,6 +750,257 @@ def phase_fit_dual(dev: torch.device) -> None:
     emit({"phase": "fit_dual", "n": 1024, "d": D_IN, "dtype": "float64", "predict_rows": 4096, **records})
 
 
+def reset_launches() -> None:
+    """Set every kernel's launch counts to 0."""
+    for mod in (gram_mod, sweep_mod):
+        mod.launches = 0
+        mod.path_launches = dict.fromkeys(mod.path_launches, 0)
+
+
+def read_launches(tag: str) -> dict:
+    """The kernels' launch counts since ``reset_launches``; every kernel must have run."""
+    launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches}
+    check(all(v >= 1 for v in launches.values()), f"{tag} did not launch every kernel: {launches}")
+    return launches
+
+
+def host_timed(fn):
+    """(seconds on the host clock, the result) of host work."""
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def phase_native(y: np.ndarray) -> None:
+    """The native host loops against the Python loops, bit for bit, on a million points."""
+    check(native.load() is not None and native.backend() == "native", "the native host loops did not load")
+    gen = np.random.RandomState(7)
+    means, weights = gen.randn(1 << 20), gen.rand(1 << 20) + 0.25
+    before = dict(native.calls)
+    pav_native_s, fitted = host_timed(lambda: pool_adjacent_violators(means, weights))
+    pav_python_s, plain = host_timed(lambda: _pav_python(means, weights))
+    check(bool(np.array_equal(fitted, plain)), "native pav_fit differs from the Python loop")
+    codes = np.unique(y, return_inverse=True)[1]  # what the target quantizer scans
+    scan_native_s, (hist, edges) = host_timed(lambda: hist_quantized_ecdf(codes))
+    check(native.calls["pav_fit"] > before["pav_fit"] and native.calls["knot_scan"] > before["knot_scan"],
+          f"the native loops were not the ones that ran: {native.calls}")
+    native._FORCE_PYTHON = True
+    try:
+        scan_python_s, (hist_p, edges_p) = host_timed(lambda: hist_quantized_ecdf(codes))
+    finally:
+        native._FORCE_PYTHON = False
+    check(bool(np.array_equal(hist, hist_p) and np.array_equal(edges, edges_p)),
+          "the native knot scan differs from the Python loop")
+    emit({"phase": "native", "backend": native.backend(), "build_s": native.build_seconds, "points": 1 << 20,
+          "pav_native_s": pav_native_s, "pav_python_s": pav_python_s, "pav_blocks": int(len(np.unique(fitted))),
+          "knot_scan_unique_values": int(codes.max()) + 1, "knot_scan_bins": int(len(hist)),
+          "hist_native_s": scan_native_s, "hist_python_s": scan_python_s})
+
+
+def phase_calibration(X, y, X_test, y_test, dev: torch.device) -> NeoLSSVM:
+    """A default classifier on the 1M rows: isotonic ``predict_proba`` on held-out rows."""
+    cut = float(np.median(y))
+    labels, labels_test = (y > cut).astype(np.int64), (y_test > cut).astype(np.int64)
+    reset_launches()
+    fit_s, model = timed(lambda: NeoLSSVM(device=dev).fit(X, labels))
+    launches = read_launches("the classifier's 1M fit")
+    check("predict_proba_calibrator_" not in vars(model), "fit made the calibrator: it must wait for its first use")
+    pav_calls = native.calls["pav_fit"]
+    first_s, proba = timed(lambda: model.predict_proba(X_test))
+    check(native.calls["pav_fit"] == pav_calls + 1, "the calibrator's PAV did not run in the native loop")
+    repeat_s = statistics.median(timed(lambda: model.predict_proba(X_test))[0] for _ in range(5))
+    decision = model.decision_function(X_test)
+    check(proba.shape == (65_536, 2) and bool(np.all((proba >= 0) & (proba <= 1))), "predict_proba: not in [0, 1]")
+    check(float(np.max(np.abs(proba.sum(axis=1) - 1))) <= 1e-6, "predict_proba: rows do not sum to 1")
+    check(bool(np.all(np.diff(proba[np.argsort(decision, kind="stable"), 1]) >= -1e-12)),
+          "predict_proba decreases somewhere in decision_function")
+    brier = float(np.mean((proba[:, 1] - labels_test) ** 2))
+    base = float(labels.mean())
+    brier_base = float(np.mean((base - labels_test) ** 2))
+    check(brier < brier_base, f"held-out Brier score {brier} is not below the base rate's {brier_base}")
+    X_test_d = torch.from_numpy(X_test).to(dev)
+    proba_d = model.predict_proba(X_test_d)
+    check(isinstance(proba_d, torch.Tensor) and proba_d.device.type == "cuda", "tensor lane: no CUDA tensor came back")
+    lane_diff = float(np.max(np.abs(proba_d.cpu().numpy() - proba)))
+    check(lane_diff <= 1e-6, f"predict_proba: tensor lane {lane_diff} from the NumPy lane")
+    tensor_s = statistics.median(timed(lambda: model.predict_proba(X_test_d))[0] for _ in range(5))
+    on_cpu = NeoLSSVM.from_state_dict(model.to_state_dict(), device="cpu")
+    # The CPU's float32 ŷ differs from the card's in its last bits, and the calibrator is a
+    # staircase over a million thresholds, whose steps magnify that: ŷ is held within 1e-4,
+    # the probabilities within 1e-5 in the mean and 0.01 at the worst row.
+    cpu_decision_diff = float(np.max(np.abs(on_cpu.decision_function(X_test) - decision)))
+    cpu_abs = np.abs(on_cpu.predict_proba(X_test) - proba)
+    cpu_diff, cpu_mean_diff = float(cpu_abs.max()), float(cpu_abs.mean())
+    check(cpu_decision_diff <= 1e-4 and cpu_mean_diff <= 1e-5 and cpu_diff <= 1e-2,
+          f"the state restored on the CPU: ŷ {cpu_decision_diff}, probabilities {cpu_mean_diff} (mean) {cpu_diff} (max) off")
+    # Where the first call's time goes: the calibrator's steps again, one by one, on the
+    # same million LOO predictions.
+    loo = model.loo_ŷ_.astype(np.float64)
+    target = (labels == 1).astype(np.float64)
+    lexsort_s, order = host_timed(lambda: np.lexsort((target, loo)))
+    unique_s, (uniq, start) = host_timed(lambda: np.unique(loo[order], return_index=True))
+    w_sorted = np.ones_like(loo)
+    sums_w, sums_wy = np.add.reduceat(w_sorted, start), np.add.reduceat(target[order], start)
+    pav_s, _ = host_timed(lambda: pool_adjacent_violators(sums_wy / sums_w, sums_w))
+    emit({"phase": "calibration", "n": len(y), "fit_s": fit_s, "launches": launches, "loo_score": model.loo_score_,
+          "predict_rows": 65_536, "first_predict_proba_s": first_s, "repeat_predict_proba_s": repeat_s,
+          "tensor_lane_predict_proba_s": tensor_s, "tensor_lane_rows_per_s": 65_536 / tensor_s,
+          "calibrator_steps_s": {"lexsort": lexsort_s, "unique": unique_s, "pav": pav_s},
+          "thresholds": int(len(model.predict_proba_calibrator_.X_thresholds_)),
+          "brier": brier, "brier_base_rate": brier_base, "test_accuracy": float(np.mean(model.predict(X_test) == labels_test)),
+          "tensor_vs_numpy_max_abs": lane_diff, "cpu_restore_decision_max_abs": cpu_decision_diff,
+          "cpu_restore_mean_abs": cpu_mean_diff, "cpu_restore_max_abs": cpu_diff})
+    return model
+
+
+def pinball_of(model: NeoLSSVM, quantiles: tuple) -> float:
+    """The exact weighted pinball loss of the model's fitted level-1 planes on their own
+    calibration design, the mean over the two targets and the quantiles."""
+    q = np.asarray(quantiles, dtype=np.float64)
+    w = model.sample_weight_calib_l1_.astype(np.float64)
+    w = w / w.sum()
+    losses = []
+    for target_type in ("Δŷ", "Δŷ/ŷ"):
+        A, target = model._conformal_design(target_type)
+        planes = model.conformal_l1_[target_type][tuple(np.asarray(quantiles))].β_.astype(np.float64)
+        r = target.astype(np.float64)[:, None] - np.hstack([A, np.ones((len(A), 1))]).astype(np.float64) @ planes
+        losses.append(float(w @ np.maximum(q * r, (q - 1) * r).mean(axis=1)))
+    return statistics.fmean(losses)
+
+
+def coherence_report(model: NeoLSSVM, X_test: np.ndarray, quantiles: np.ndarray) -> dict:
+    """Which held-out rows have quantiles that decrease somewhere, inside and outside the
+    convex hull of the calibration rows' (σ, |ŷ|).
+
+    The coherent LP orders the quantile planes on its level-1 calibration rows, hence (the
+    planes are affine) on their convex hull, and the level-2 biases are clipped to keep that. A
+    row beyond the hull extrapolates the planes, which may cross there, in the reference
+    as here. So the hull's rows are held to non-decreasing quantiles, every one of them, up
+    to the rounding of float32 serving (1e-4 of the median 95% width); the others are counted.
+    """
+    from scipy.spatial import Delaunay  # noqa: PLC0415
+
+    def design(std, yhat):
+        return np.column_stack([std, np.abs(yhat)]).astype(np.float64)
+
+    calib = design(model.nonconformity_calib_l1_, model.ŷ_calib_l1_)
+    scale = calib.max(axis=0) - calib.min(axis=0)
+    rows = design(model.predict_std(X_test), model.decision_function(X_test))
+    inside = Delaunay(calib / scale).find_simplex(rows / scale) >= 0
+    slack = 1e-4 * float(np.median(quantiles[:, -1] - quantiles[:, 0]))
+    decreases = (np.diff(quantiles.astype(np.float64), axis=1) < -slack).any(axis=1)
+    return {"rows_inside_hull": int(inside.sum()), "rows_inside_that_decrease": int((inside & decreases).sum()),
+            "rows_outside_hull": int((~inside).sum()), "rows_outside_that_decrease": int((~inside & decreases).sum())}
+
+
+def phase_conformal(X, y, X_test, y_test, dev: torch.device) -> NeoLSSVM:
+    """The default 1M regressor: conformal intervals and quantiles on held-out rows, the
+    exact LPs against the smooth Newton solver on the card, and the tensor lane."""
+    seven = (0.025, 0.05, 0.1, 0.5, 0.9, 0.95, 0.975)
+    reset_launches()
+    fit_s, model = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
+    launches = read_launches("the regressor's 1M fit")
+    check("conformal_l1_" not in vars(model), "fit made the conformal split: it must wait for its first use")
+    first_s, interval = timed(lambda: model.predict_interval(X_test, coverage=0.9))
+    repeat_s = statistics.median(timed(lambda: model.predict_interval(X_test, coverage=0.9))[0] for _ in range(5))
+    check(interval.shape == (65_536, 2) and bool(np.all(np.isfinite(interval))), "predict_interval: bad output")
+    coverage = float(np.mean((interval[:, 0] <= y_test) & (y_test <= interval[:, 1])))
+    check(0.87 <= coverage <= 0.95, f"predict_interval(coverage=0.9) covers {coverage} of the held-out rows")
+    lp_seven_s, _ = timed(lambda: model._fit_conformal_pair(seven))
+    lp_blocks = {t: model.conformal_l1_[t][seven].solver_diagnostics_ for t in ("Δŷ", "Δŷ/ŷ")}
+    quantiles = model.predict_quantiles(X_test, quantiles=seven)
+    monotone = coherence_report(model, X_test, quantiles)
+    check(quantiles.shape == (65_536, 7) and monotone["rows_inside_that_decrease"] == 0,
+          f"predict_quantiles: a row inside the calibration rows' hull has decreasing quantiles: {monotone}")
+    smooth = NeoLSSVM(device=dev, conformal_method="smooth").fit(X, y)
+    check(bool(np.array_equal(smooth.ŷ_calib_l1_, model.ŷ_calib_l1_)), "the smooth model's split is another one")
+    pair = tuple(np.asarray(((1 - 0.9) / 2, 1 - (1 - 0.9) / 2)))
+    newton_pair_s, _ = timed(lambda: smooth._fit_conformal_pair(pair))
+    newton_seven_s, _ = timed(lambda: smooth._fit_conformal_pair(seven))
+    gaps = {}
+    for name, qs in (("interval", pair), ("seven", seven)):
+        exact_loss, smooth_loss = pinball_of(model, qs), pinball_of(smooth, qs)
+        gaps[name] = {"exact_lp": exact_loss, "smooth_newton": smooth_loss, "gap": smooth_loss / exact_loss - 1}
+        check(-1e-6 <= gaps[name]["gap"] <= SMOOTH_GAP_LIMIT,
+              f"smooth pinball loss {smooth_loss} vs the LP's {exact_loss} ({name})")
+    smooth_monotone = coherence_report(smooth, X_test, smooth.predict_quantiles(X_test, quantiles=seven))
+    check(smooth_monotone["rows_inside_that_decrease"] == 0, f"smooth predict_quantiles decrease inside the hull: {smooth_monotone}")
+    smooth_interval = smooth.predict_interval(X_test, coverage=0.9)
+    smooth_coverage = float(np.mean((smooth_interval[:, 0] <= y_test) & (y_test <= smooth_interval[:, 1])))
+    X_test_d = torch.from_numpy(X_test).to(dev)
+    lanes = {}
+    for name, call in (("predict_interval", lambda m, A: m.predict_interval(A, coverage=0.9)),
+                       ("predict_quantiles", lambda m, A: m.predict_quantiles(A, quantiles=seven)),
+                       ("decision_function", lambda m, A: m.decision_function(A)),
+                       ("predict_std", lambda m, A: m.predict_std(A)),
+                       ("predict", lambda m, A: m.predict(A))):
+        out_d = call(model, X_test_d)
+        check(isinstance(out_d, torch.Tensor) and out_d.device.type == "cuda", f"{name}: no CUDA tensor came back")
+        np.testing.assert_allclose(out_d.cpu().numpy(), call(model, X_test), rtol=1e-5, atol=1e-5, err_msg=name)
+        seconds = statistics.median(timed(lambda: call(model, X_test_d))[0] for _ in range(5))  # noqa: B023
+        lanes[name] = {"tensor_lane_s": seconds, "tensor_lane_rows_per_s": 65_536 / seconds}
+    try:
+        model.predict(X_test_d.cpu().to("meta"))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a tensor on another device did not raise")
+    emit({"phase": "conformal", "n": len(y), "fit_s": fit_s, "launches": launches, "predict_rows": 65_536,
+          "first_predict_interval_s": first_s, "repeat_predict_interval_s": repeat_s, "coverage_at_0.9": coverage,
+          "mean_width": float(np.mean(interval[:, 1] - interval[:, 0])), "lp_seven_quantiles_s": lp_seven_s, "lp_seven_quantiles_blocks": lp_blocks,
+          "newton_interval_s": newton_pair_s, "newton_seven_quantiles_s": newton_seven_s,
+          "smooth_coverage_at_0.9": smooth_coverage, "pinball": gaps, "seven_quantiles": monotone,
+          "smooth_seven_quantiles": smooth_monotone,
+          "tensor_lane": lanes})
+    return model
+
+
+def phase_state_dict(models: dict, X_test: np.ndarray, dev: torch.device) -> None:
+    """A state-dict round trip and a pickle round trip on the card, bit for bit."""
+    X_test_d = torch.from_numpy(X_test).to(dev)
+    records = {}
+    for task, model in models.items():
+        calls = {"decision_function": lambda m: m.decision_function(X_test), "predict_std": lambda m: m.predict_std(X_test),
+                 "tensor_decision": lambda m: m.decision_function(X_test_d).cpu().numpy()}
+        if task == "classifier":
+            calls["predict_proba"] = lambda m: m.predict_proba(X_test)
+        calls["predict_quantiles"] = lambda m: m.predict_quantiles(X_test)
+        want = {name: call(model) for name, call in calls.items()}
+        state_s, restored = timed(lambda: NeoLSSVM.from_state_dict(model.to_state_dict(), device=dev))  # noqa: B023
+        blob = pickle.dumps(model)
+        unpickled = pickle.loads(blob)
+        check("_device_cache" not in vars(unpickled), "pickle: device handles travelled")
+        for how, other in (("state_dict", restored), ("pickle", unpickled)):
+            for name, call in calls.items():
+                check(bool(np.array_equal(call(other), want[name])), f"{task} {how}: {name} is not bit-equal")
+        records[task] = {"round_trip_s": state_s, "pickle_bytes": len(blob), "checked": sorted(calls)}
+    emit({"phase": "state_dict", **records})
+
+
+def phase_tensor_io(X, y, dev: torch.device) -> None:
+    """``fit`` on a CUDA tensor against ``fit`` on the same NumPy rows, three fits each in
+    turns (NumPy, tensor, tensor, NumPy, …), since one fit's time moves with the host."""
+    records = {how: {"fit_s": []} for how in ("numpy", "tensor")}
+    for how in ("numpy", "tensor", "tensor", "numpy", "numpy", "tensor"):
+        torch.cuda.empty_cache()
+        rows = X if how == "numpy" else torch.from_numpy(X).to(dev)
+        target = y if how == "numpy" else torch.from_numpy(y).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        fit_s, model = timed(lambda: NeoLSSVM(device=dev, pre_transform="device").fit(rows, target))  # noqa: B023
+        check(model.pre_transform_ == "device", f"the fit on {how} rows took the {model.pre_transform_} pre-transform")
+        records[how]["fit_s"].append(fit_s)
+        records[how].update({"peak_device_bytes": torch.cuda.max_memory_allocated(dev), "gamma": model.γ_,
+                             "loo_score": model.loo_score_, "launches": read_launches(f"the fit on {how} rows")})
+        del rows, target, model
+    for record in records.values():
+        record["fit_median_s"] = statistics.median(record["fit_s"])
+    check(records["numpy"]["gamma"] == records["tensor"]["gamma"], f"tensor_io: γ differs: {records}")
+    check(abs(records["numpy"]["loo_score"] - records["tensor"]["loo_score"]) <= 1e-6, f"tensor_io: LOO R² differs: {records}")
+    emit({"phase": "tensor_io", "n": len(y), **records})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -740,6 +1028,14 @@ def main() -> int:
     gram_record, sweep_record = phase_fit_1m(dev)
     phase_fit_262k(dev)
     phase_fit_dual(dev)
+    X, y = make_dataset(1 << 20, D_IN, seed=0)
+    X_test, y_test = make_dataset(65_536, D_IN, seed=1)
+    phase_native(y)
+    classifier = phase_calibration(X, y, X_test, y_test, dev)
+    regressor = phase_conformal(X, y, X_test, y_test, dev)
+    phase_state_dict({"classifier": classifier, "regressor": regressor}, X_test, dev)
+    del classifier, regressor
+    phase_tensor_io(X, y, dev)
     emit({"kernels": [gram_record, sweep_record]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -10,9 +10,16 @@ the device (``ops/pretransform_device.py``) once the feature payload reaches
 ``routing.AUTO_DEVICE_PT_MIN_BYTES`` or when ``pre_transform="device"`` asks for it.
 
 The estimator runs on the card (``device="cuda"``, the default) unless the caller asks
-for the CPU with ``device="cpu"``; it never moves to the CPU on its own. What this port
-does not cover yet raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+for the CPU with ``device="cpu"``; it never moves to the CPU on its own. ``fit`` and every
+serving entry also take a ``torch.Tensor`` that already lies on the model's device: it is
+validated from its metadata only (no finiteness scan, no host copy) and the serving
+entries answer with a tensor on that device; a tensor on another device raises. What this
+port does not cover yet raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
 ports it.
+
+After a fit, the isotonic calibrator of a classifier and the two-level conformal split are
+made at first use (``predict_proba``, ``predict_quantiles``, pickling, …), not in ``fit``:
+at a million rows their sorts and permutation are host work of the order of the whole fit.
 """
 
 from typing import TYPE_CHECKING, Any, Literal
@@ -22,7 +29,9 @@ import numpy.typing as npt
 import torch
 
 from neo_ls_svm_torch.models import routing
+from neo_ls_svm_torch.models.conformal import ConformalMixin
 from neo_ls_svm_torch.models.dual import dual_decision_function, dual_fit, dual_predict_var
+from neo_ls_svm_torch.models.isotonic import IsotonicCalibrator
 from neo_ls_svm_torch.models.primal import (
     gamma_grid,
     primal_decision_function,
@@ -38,7 +47,16 @@ from neo_ls_svm_torch.ops.orff import (
     RandomFourierFeatures,
 )
 from neo_ls_svm_torch.ops.pretransform_device import DEVICE_PRETRANSFORM_BINS, device_pre_transform
+from neo_ls_svm_torch.ops.weighted_quantile import interp
 from neo_ls_svm_torch.utils.base import BaseEstimator, clone
+from neo_ls_svm_torch.utils.device import (
+    is_tensor,
+    numpy_dtype,
+    require_device,
+    resolve_device,
+    to_device as _to_device,
+    torch_dtype,
+)
 from neo_ls_svm_torch.utils.metrics import accuracy_score, r2_score
 from neo_ls_svm_torch.utils.transfer import upload_rows
 from neo_ls_svm_torch.utils.validation import (
@@ -49,6 +67,7 @@ from neo_ls_svm_torch.utils.validation import (
     check_random_state,
     check_X_y,
     is_pandas,
+    train_test_split,
 )
 
 if TYPE_CHECKING:  # pandas is an optional I/O convenience, never a runtime dependency.
@@ -59,6 +78,13 @@ STREAMING_BYTES_THRESHOLD = 6 * 1024**3  # In-memory working set above this → 
 STREAMING_ROW_CHUNK = 32768
 PREDICT_CHUNK_ROWS = 1 << 20  # Chunk predictions beyond this many rows (bounds the
 # transient n×2M feature block on the device).
+# The conformal calibration split, in the order ``train_test_split`` returns it: the level-1
+# and level-2 part of the LOO std, the LOO ŷ, the LOO residuals and the sample weights.
+_CONFORMAL_SPLIT_ATTRS = tuple(
+    f"{stem}_calib_{level}_"
+    for stem in ("nonconformity", "ŷ", "residuals", "sample_weight")
+    for level in ("l1", "l2")
+)
 # What a fit leaves behind and a refit must not serve: route-conditional attributes
 # (``classes_``, the dual route's ``X_``) would leak across task types and routes.
 _FIT_STATE = (
@@ -77,7 +103,18 @@ _FIT_STATE = (
     "_M_map",
     "_b_map",
     "_inv_c0",
+    "_calibration_ctx",
+    "predict_proba_calibrator_",
+    *_CONFORMAL_SPLIT_ATTRS,
+    "conformal_l1_",
+    "conformal_l2_",
 )
+# Fitted attributes made at first use from ``_calibration_ctx`` (see ``__getattr__``), and
+# the method that makes each.
+_LAZY_CALIBRATION = {
+    "predict_proba_calibrator_": "_materialize_calibrator",
+    **dict.fromkeys((*_CONFORMAL_SPLIT_ATTRS, "conformal_l1_", "conformal_l2_"), "_materialize_conformal_split"),
+}
 
 
 def _primal_working_set_bytes(n_rows: int, num_features: int, itemsize: int) -> int:
@@ -96,15 +133,6 @@ def _maybe_pandas_series(values: npt.NDArray, X_df: Any) -> Any:
     return values
 
 
-def _to_device(a: npt.NDArray, device: torch.device) -> torch.Tensor:
-    """Host array → tensor on ``device`` (a read-only array is copied first: torch
-    warns on wrapping a non-writable buffer)."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
-        a = a.copy()
-    return torch.from_numpy(a).to(device)
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to neo_ls_svm_torch yet (ROADMAP.md, {item}); "
@@ -112,18 +140,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _reject_tensor(*values: Any) -> None:
-    if any(isinstance(v, torch.Tensor) for v in values):
-        raise _not_ported("torch.Tensor input", "Queue 1 item 8, device-resident I/O")
-
-
-class NeoLSSVM(BaseEstimator):
+class NeoLSSVM(ConformalMixin, BaseEstimator):
     """Neo LS-SVM: a modern least-squares SVM with O(n) training and hyperparameter-free
     LOO tuning, running its linear algebra on an NVIDIA GPU through PyTorch and
     hand-written CUDA kernels.
 
     ``device`` names the torch device the solver runs on. It defaults to ``"cuda"``;
-    ``fit`` raises when CUDA is unavailable unless ``device="cpu"`` was passed.
+    ``fit`` raises when CUDA is unavailable unless ``device="cpu"`` was passed. A
+    ``torch.Tensor`` input must lie on that device.
     """
 
     def __init__(
@@ -156,17 +180,7 @@ class NeoLSSVM(BaseEstimator):
     # ------------------------------------------------------------------ fitting
 
     def _resolve_device(self) -> torch.device:
-        device = torch.device(self.device)
-        if device.type not in ("cuda", "cpu"):
-            msg = f"device must be a CUDA or CPU device, got {self.device!r}."
-            raise ValueError(msg)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            msg = (
-                f"NeoLSSVM(device={self.device!r}) needs a CUDA device and none is "
-                "available; pass device='cpu' to run on the CPU."
-            )
-            raise RuntimeError(msg)
-        return device
+        return resolve_device(self.device)
 
     def _check_options(self) -> None:
         """Reject invalid option values (ValueError) and valid ones this port does not
@@ -196,22 +210,77 @@ class NeoLSSVM(BaseEstimator):
         if self.mesh is not None:
             raise _not_ported("mesh", "Queue 1 item 10, multi-GPU")
 
+    def _validate_fit_device_X(self, X: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """Metadata-only validation of a training X that is a tensor.
+
+        Shape and dtype come from the tensor's metadata and the NaN/inf scan is skipped: a
+        finiteness reduction would read the device, which this lane exists to avoid (the
+        caller's pipeline owns its data hygiene). ``check_X_y``'s dtype policy: float32 and
+        float64 pass through, everything else widens to float64.
+        """
+        if X.ndim != 2:
+            msg = f"Expected 2D array, got {X.ndim}D tensor instead."
+            raise ValueError(msg)
+        if X.shape[0] < 2:
+            msg = f"Found array with {X.shape[0]} sample(s) while a minimum of 2 is required."
+            raise ValueError(msg)
+        if X.shape[1] < 1:
+            msg = (
+                f"Found array with 0 feature(s) (shape={tuple(X.shape)}) while a minimum "
+                "of 1 is required."
+            )
+            raise ValueError(msg)
+        if X.is_complex():
+            msg = "Complex data not supported."
+            raise ValueError(msg)
+        require_device(X, device, "X")
+        if self.transfer not in ("auto", "float32"):
+            msg = (
+                f"transfer={self.transfer!r} narrows the host→device upload, but X is "
+                "already a tensor on the device: there is no upload to narrow."
+            )
+            raise ValueError(msg)
+        X = X.detach()
+        return X if X.dtype in (torch.float32, torch.float64) else X.to(torch.float64)
+
     def fit(
         self,
-        X: "npt.NDArray | pd.DataFrame",
-        y: "npt.NDArray | pd.Series",
-        sample_weight: "npt.NDArray | pd.Series | None" = None,
+        X: "npt.NDArray | torch.Tensor | pd.DataFrame",
+        y: "npt.NDArray | torch.Tensor | pd.Series",
+        sample_weight: "npt.NDArray | torch.Tensor | pd.Series | None" = None,
     ) -> "NeoLSSVM":
-        """Fit this predictor."""
-        _reject_tensor(X, y, sample_weight)
+        """Fit this predictor.
+
+        X may be a ``torch.Tensor`` on the model's device: it is then validated from its
+        metadata only and never copied to the host on the primal route with the device
+        pre-transform, which such a fit takes wherever it is eligible. The O(n) target and
+        weights are pulled once, so the host-side task and label logic is unchanged.
+        """
         device = self._resolve_device()
         self._check_options()
-        X, y = check_X_y(X, y, dtype=(np.float64, np.float32), ensure_min_samples=2)
-        y = np.ravel(np.asarray(y))
+        # The one pull of y and the weights, whichever of them are tensors.
+        y, sample_weight = (
+            v.detach().cpu().numpy() if is_tensor(v) else v for v in (y, sample_weight)
+        )
+        X_on_device = is_tensor(X)
+        if X_on_device:
+            X = self._validate_fit_device_X(X, device)
+            x_dtype = numpy_dtype(X.dtype)
+            y = np.ravel(np.asarray(y))
+            check_consistent_length(X, y)
+            # y is on the host here, so check_X_y's finiteness gate costs no device read;
+            # only the O(n·d) scan of X is skipped (a NaN in y would fit an all-NaN model).
+            if np.issubdtype(y.dtype, np.floating) and not np.all(np.isfinite(y)):
+                msg = "Input y contains NaN or infinity."
+                raise ValueError(msg)
+        else:
+            X, y = check_X_y(X, y, dtype=(np.float64, np.float32), ensure_min_samples=2)
+            x_dtype = X.dtype
+            y = np.ravel(np.asarray(y))
         sample_weight_ = (
-            np.ones(y.shape, X.dtype)
+            np.ones(y.shape, x_dtype)
             if sample_weight is None
-            else np.ravel(np.asarray(sample_weight)).astype(X.dtype)
+            else np.ravel(np.asarray(sample_weight)).astype(x_dtype)
         )
         check_consistent_length(y, sample_weight_)
         if np.sum(sample_weight_) <= 0:
@@ -251,10 +320,10 @@ class NeoLSSVM(BaseEstimator):
             raise ValueError(msg)
         if self._estimator_type == "classifier":
             self.classes_: npt.NDArray = unique_y
-            y_ = np.ones(y.shape, dtype=X.dtype)
+            y_ = np.ones(y.shape, dtype=x_dtype)
             y_[y == self.classes_[0]] = -1
         elif self._estimator_type == "regressor":
-            y_ = y.astype(X.dtype)
+            y_ = y.astype(x_dtype)
         else:
             msg = "Target type not supported"
             raise ValueError(msg)
@@ -271,14 +340,30 @@ class NeoLSSVM(BaseEstimator):
         # Primal vs dual routing (ref :375).
         self.dual_ = bool(X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual)
         self.primal_ = not self.dual_
+        if X_on_device and (self.dual_ or self.pre_transform == "host"):
+            # These routes run the host pre-transform (the dual solver's feature map, or
+            # the bit-parity pre-transform the caller asked for), which needs X on the
+            # host: one explicit pull, small for the dual route (n ≤ 1024) and the stated
+            # cost of turning the device route down.
+            X = X.cpu().numpy()
+        if self.dual_:
+            nz = sample_weight_ > 0
+            X, y_, sample_weight_ = X[nz], y_[nz], sample_weight_[nz]
         fit_route = self._fit_primal if self.primal_ else self._fit_dual
         result = fit_route(X, y_, sample_weight_, is_classifier=is_classifier, device=device)
         self._set_fit_attributes({k: v.cpu().numpy() for k, v in result.items()})
+        # The calibrator and the conformal split are made from this at first use.
+        self._calibration_ctx = {
+            "y_": y_,
+            "sample_weight": sample_weight_,
+            "is_classifier": is_classifier,
+            "num_rows": len(y_),
+        }
         return self
 
     def _fit_primal(
         self,
-        X: npt.NDArray,
+        X: "npt.NDArray | torch.Tensor",
         y_: npt.NDArray,
         sample_weight_: npt.NDArray,
         *,
@@ -286,7 +371,7 @@ class NeoLSSVM(BaseEstimator):
         device: torch.device,
     ) -> dict[str, torch.Tensor]:
         """The primal route (n > 1024): resolve the pre-transform and the solver route,
-        then fit on ``device``."""
+        then fit on ``device``. X is a host array, or a validated tensor on ``device``."""
         self.primal_feature_map_ = clone(
             OrthogonalRandomFourierFeatures()
             if self.primal_feature_map == "auto"
@@ -294,8 +379,9 @@ class NeoLSSVM(BaseEstimator):
         )
         fm = self.primal_feature_map_
         n_rows = X.shape[0]
+        dtype = y_.dtype  # X's dtype, as a NumPy dtype whether X is an array or a tensor
         num_features = int(getattr(fm, "num_features", 512))
-        working_set_bytes = _primal_working_set_bytes(n_rows, num_features, X.dtype.itemsize)
+        working_set_bytes = _primal_working_set_bytes(n_rows, num_features, dtype.itemsize)
         route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
         # The device pre-transform applies to a random-Fourier feature map whose
         # complexity matrix is the shipped identity (a subclass overriding
@@ -304,10 +390,16 @@ class NeoLSSVM(BaseEstimator):
             isinstance(fm, RandomFourierFeatures)
             and type(fm).complexity_matrix is RandomFourierFeatures.complexity_matrix
         )
+        if is_tensor(X) and not device_pt_eligible:
+            # A custom feature map needs the host pre-transform: one explicit pull is the
+            # only way to honour it.
+            X = X.cpu().numpy()
         self.pre_transform_, self.transfer_ = routing._resolve_fit_plan(
-            self.pre_transform,
+            # A tensor X takes the device pre-transform (eligibility was settled above;
+            # the host route would cost the pull this lane avoids).
+            "device" if is_tensor(X) else self.pre_transform,
             self.transfer,
-            payload_bytes=n_rows * X.shape[1] * X.dtype.itemsize,
+            payload_bytes=n_rows * X.shape[1] * dtype.itemsize,
             device_pt_eligible=device_pt_eligible,
         )
         use_device_pt = self.pre_transform_ == "device" and device_pt_eligible
@@ -323,19 +415,23 @@ class NeoLSSVM(BaseEstimator):
                 "ignoring the narrow upload you opted into."
             )
             raise ValueError(msg)
-        self.γs_ = gamma_grid(X.dtype, num=1024)
+        self.γs_ = gamma_grid(dtype, num=1024)
         g_d = _to_device(self.γs_, device)
         # Streaming: zero-weight padding rows to a chunk multiple, added before the
         # pre-transform so that their weight excludes them everywhere; num_samples keeps
         # the true n.
         row_pad = (-n_rows) % STREAMING_ROW_CHUNK if route == "streaming" else 0
-        X_p = np.vstack([X, np.zeros((row_pad, X.shape[1]), X.dtype)]) if row_pad else X
-        y_d = _to_device(np.concatenate([y_, np.zeros(row_pad, X.dtype)]), device)
-        s_d = _to_device(np.concatenate([sample_weight_, np.zeros(row_pad, X.dtype)]), device)
-        # Zero-weight rows must not shape the int8 grid: an absurd-valued one would stretch
-        # it and quantise the real data to zero.
-        grid_rows = X[sample_weight_ > 0] if self.transfer_ == "int8" else None
-        X_d = upload_rows(X_p, self.transfer_, device, grid_rows=grid_rows)
+        y_d = _to_device(np.concatenate([y_, np.zeros(row_pad, dtype)]), device)
+        s_d = _to_device(np.concatenate([sample_weight_, np.zeros(row_pad, dtype)]), device)
+        if is_tensor(X):  # pad on the device: X never visits the host
+            X_d = torch.cat([X, X.new_zeros((row_pad, X.shape[1]))]) if row_pad else X
+            X_d = X_d.contiguous()
+        else:
+            X_p = np.vstack([X, np.zeros((row_pad, X.shape[1]), dtype)]) if row_pad else X
+            # Zero-weight rows must not shape the int8 grid: an absurd-valued one would
+            # stretch it and quantise the real data to zero.
+            grid_rows = X[sample_weight_ > 0] if self.transfer_ == "int8" else None
+            X_d = upload_rows(X_p, self.transfer_, device, grid_rows=grid_rows)
         C_emb = None
         pt: dict[str, torch.Tensor] = {}
         if use_device_pt:
@@ -361,12 +457,12 @@ class NeoLSSVM(BaseEstimator):
         else:
             fm.fit(X, y_, sample_weight_)
             M_map, b_map = fm.linear_map()
-            M_d, b_d = _to_device(M_map.astype(X.dtype), device), _to_device(b_map.astype(X.dtype), device)
+            M_d, b_d = _to_device(M_map.astype(dtype), device), _to_device(b_map.astype(dtype), device)
             # Surface-complexity regulariser. The shipped complexity matrix is the identity
             # (C_emb=None); a custom feature map with a nontrivial matrix routes through the
             # whitened-GEVD path (ref _neo_ls_svm.py:116-124).
-            C = np.asarray(fm.complexity_matrix, dtype=X.dtype)
-            if not np.array_equiv(C, C[0, 0] * np.eye(C.shape[0], dtype=X.dtype)):
+            C = np.asarray(fm.complexity_matrix, dtype=dtype)
+            if not np.array_equiv(C, C[0, 0] * np.eye(C.shape[0], dtype=dtype)):
                 C_n = C / (np.mean(np.abs(np.diag(C))) * (n_rows * C.shape[0]))
                 zeros = np.zeros_like(C_n)
                 C_emb = _to_device(np.block([[C_n, zeros], [zeros, C_n]]), device)
@@ -415,8 +511,8 @@ class NeoLSSVM(BaseEstimator):
         is_classifier: bool,
         device: torch.device,
     ) -> dict[str, torch.Tensor]:
-        """The dual route (n ≤ 1024, or ``dual=True``): the host pre-transform, then the
-        kernel system on ``device``."""
+        """The dual route (n ≤ 1024, or ``dual=True``), on rows of positive weight: the host
+        pre-transform, then the kernel system on ``device``."""
         if self.transfer not in ("auto", "float32"):
             msg = (
                 f"transfer={self.transfer!r} only applies to the on-device "
@@ -425,8 +521,6 @@ class NeoLSSVM(BaseEstimator):
             )
             raise ValueError(msg)
         self.pre_transform_, self.transfer_ = "host", "float32"
-        nz = sample_weight_ > 0
-        X, y_, sample_weight_ = X[nz], y_[nz], sample_weight_[nz]
         self.dual_feature_map_ = clone(
             AffineSeparator() if self.dual_feature_map == "auto" else self.dual_feature_map
         )
@@ -480,6 +574,64 @@ class NeoLSSVM(BaseEstimator):
         self.loo_std_ = result["loo_std"]
         self.residuals_ = result["residuals"]
 
+    # ------------------------------------------- calibration state, made at first use
+
+    def _materialize_calibrator(self) -> None:
+        """Isotonic probability calibration on the LOO predictions (ref ``:406-412``): at
+        a million rows a lexsort, a ``unique`` and the PAV loop, so it waits for the first
+        ``predict_proba``."""
+        ctx = self.__dict__.get("_calibration_ctx")
+        if ctx is None or not ctx["is_classifier"] or "predict_proba_calibrator_" in self.__dict__:
+            return
+        calibrator = IsotonicCalibrator(out_of_bounds="clip", y_min=0, y_max=1, increasing=True)
+        y_ = ctx["y_"]
+        target = np.zeros_like(y_)
+        target[y_ == np.max(y_)] = 1.0
+        calibrator.fit(self.loo_ŷ_, target, ctx["sample_weight"])
+        self.predict_proba_calibrator_ = calibrator
+
+    def _materialize_conformal_split(self) -> None:
+        """The two-level conformal calibration split (ref ``:414-430``): a permutation of
+        all rows, so it waits for the first conformal call."""
+        ctx = self.__dict__.get("_calibration_ctx")
+        if ctx is None or "conformal_l1_" in self.__dict__:
+            return
+        num_rows = ctx["num_rows"]
+        split = train_test_split(
+            self.loo_std_,
+            self.loo_ŷ_,
+            self.loo_residuals_,
+            ctx["sample_weight"],
+            train_size=min(1440, max(1024, (num_rows * 2) // 3), num_rows - 1),
+            random_state=self.random_state,
+        )
+        for name, value in zip(_CONFORMAL_SPLIT_ATTRS, split):
+            setattr(self, name, value)
+        self.conformal_l2_: dict[str, dict[tuple[float, ...], npt.NDArray]] = {"Δŷ": {}, "Δŷ/ŷ": {}}
+        # Set last: its presence says that the split is whole.
+        self.conformal_l1_: dict[str, dict[tuple[float, ...], Any]] = {"Δŷ": {}, "Δŷ/ŷ": {}}
+
+    def __getattr__(self, name: str) -> Any:
+        # Normal lookup failed: a calibration attribute that the last fit has not made
+        # yet is made now.
+        maker = _LAZY_CALIBRATION.get(name)
+        if maker is not None and self.__dict__.get("_calibration_ctx") is not None:
+            getattr(self, maker)()
+            if name in self.__dict__:
+                return self.__dict__[name]
+        msg = f"{type(self).__name__!r} object has no attribute {name!r}"
+        raise AttributeError(msg)
+
+    def __getstate__(self) -> dict[str, Any]:
+        """The pickled state: everything a fit left, with the calibration state made first
+        and without the device handles (the host attributes carry the same state)."""
+        self._materialize_calibrator()
+        self._materialize_conformal_split()
+        state = dict(self.__dict__)
+        state.pop("_device_cache", None)
+        state.pop("_calibration_ctx", None)
+        return state
+
     # ------------------------------------------------------------- core predictors
 
     def _compute_dtype(self) -> np.dtype:
@@ -507,74 +659,143 @@ class NeoLSSVM(BaseEstimator):
             cache[key] = _to_device(np.asarray(host, dtype=dtype), self.device_)
         return cache[key]
 
-    def _in_chunks(self, X: npt.NDArray, fn: Any) -> npt.NDArray:
-        """Apply a device function over row chunks of X and return a host array. A chunk
-        crosses to the device at the width the model was fitted with (``transfer_``)."""
-        X = X.astype(self._compute_dtype(), copy=False)
-        parts = [
-            fn(upload_rows(X[start : start + PREDICT_CHUNK_ROWS], self.transfer_, self.device_))
-            for start in range(0, X.shape[0], PREDICT_CHUNK_ROWS)
-        ]
-        return torch.cat(parts).cpu().numpy()
-
-    def _validated(self, X: Any) -> npt.NDArray:
+    def _validated(self, X: Any) -> "npt.NDArray | torch.Tensor":
+        """X ready for serving: a tensor on the model's device in the compute dtype,
+        validated from its metadata only (no NaN/inf scan: a reduction pulled to the host
+        would cost the round trip the tensor lane exists to avoid; serving pipelines own
+        their data hygiene), or a host array under the full sklearn validation contract."""
         check_is_fitted(self, ["γ_"])
-        _reject_tensor(X)
-        return _check_n_features(self, check_array(X, dtype=(np.float64, np.float32)))
+        if not is_tensor(X):
+            return _check_n_features(self, check_array(X, dtype=(np.float64, np.float32)))
+        if X.ndim != 2:
+            msg = f"Expected 2D array, got {X.ndim}D tensor instead."
+            raise ValueError(msg)
+        _check_n_features(self, X)
+        require_device(X, self.device_, "X")
+        return X.detach().to(torch_dtype(self._compute_dtype()))
 
-    def _decision(self, X_np: npt.NDArray) -> npt.NDArray:
+    def _in_chunks(self, X: "npt.NDArray | torch.Tensor", fn: Any, *, device_out: bool) -> Any:
+        """Apply a device function over row chunks of X. A host array crosses to the
+        device chunk by chunk, at the width the model was fitted with (``transfer_``); a
+        tensor is sliced where it lies. With ``device_out`` the result stays a tensor on
+        the device, else it is pulled once."""
+        host_in = not is_tensor(X)
+        if host_in:
+            # copy=False: no O(n·d) host duplicate when the dtype already matches.
+            X = X.astype(self._compute_dtype(), copy=False)
+        parts = []
+        for start in range(0, max(X.shape[0], 1), PREDICT_CHUNK_ROWS):
+            X_c = X[start : start + PREDICT_CHUNK_ROWS]
+            parts.append(fn(upload_rows(X_c, self.transfer_, self.device_) if host_in else X_c))
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return out if device_out else out.cpu().numpy()
+
+    def _device_dual_transform(self, X: torch.Tensor) -> torch.Tensor:
+        """The dual feature map's affine form applied on the device (no host transform)."""
+        cache = self.__dict__.setdefault("_device_cache", {})
+        if "dual_map" not in cache:
+            # linear_form returns (M, offset, inv_scale) for a map with a matrix A, and
+            # (None, shift, inv_scale) for a pure shift and scale.
+            M, offset, inv_scale = self.dual_feature_map_.linear_form(self.n_features_in_)
+            dtype = self.X_.dtype
+            row = np.asarray(offset, dtype).reshape(1, -1)
+            if M is None:
+                scale_row = np.broadcast_to(np.asarray(inv_scale, dtype), offset.shape).reshape(1, -1)
+                cache["dual_map"] = (None, _to_device(row, self.device_), _to_device(scale_row, self.device_))
+            else:
+                cache["dual_map"] = (_to_device(M.astype(dtype), self.device_), _to_device(row, self.device_), None)
+        M_d, off_d, inv_scale_d = cache["dual_map"]
+        if M_d is None:
+            return (X - off_d) * inv_scale_d
+        return X @ M_d + off_d
+
+    def _serve(self, X: "npt.NDArray | torch.Tensor", primal_fn: Any, dual_fn: Any, *, device_out: bool) -> Any:
+        """Run the model's serving function over a validated X: ``primal_fn`` on chunks of
+        X, or ``dual_fn`` on chunks of the dual feature map's transform of X (on the host
+        for a host array, where that map was fitted; on the device for a tensor). The one
+        route choice of every serving entry, so the host and tensor lanes cannot part."""
         if self.primal_:
+            return self._in_chunks(X, primal_fn, device_out=device_out)
+        if is_tensor(X):
             return self._in_chunks(
-                X_np,
-                lambda X_c: primal_decision_function(
-                    X_c, self._device("M_map"), self._device("b_map"), self._device("beta_emb")
-                ),
+                X, lambda X_c: dual_fn(self._device_dual_transform(X_c)), device_out=device_out
             )
-        return self._in_chunks(
-            self.dual_feature_map_.transform(X_np),
+        return self._in_chunks(self.dual_feature_map_.transform(X), dual_fn, device_out=device_out)
+
+    def _decision(self, X_v: "npt.NDArray | torch.Tensor") -> "npt.NDArray | torch.Tensor":
+        """ŷ for a validated X: a tensor for a tensor, an array for an array."""
+        return self._serve(
+            X_v,
+            lambda X_c: primal_decision_function(
+                X_c, self._device("M_map"), self._device("b_map"), self._device("beta_emb")
+            ),
             lambda X_c: dual_decision_function(X_c, self._device("X_train"), self._device("alpha")),
+            device_out=is_tensor(X_v),
         )
 
-    def decision_function(self, X: "npt.NDArray | pd.DataFrame") -> "npt.NDArray | pd.Series":
-        """Evaluate the prediction function ŷ(x) (ref ``:655-681``)."""
-        return _maybe_pandas_series(self._decision(self._validated(X)), X)
+    def decision_function(
+        self, X: "npt.NDArray | torch.Tensor | pd.DataFrame"
+    ) -> "npt.NDArray | torch.Tensor | pd.Series":
+        """Evaluate the prediction function ŷ(x) (ref ``:655-681``). A tensor on the
+        model's device comes back as a tensor on that device, with no host copy."""
+        yhat = self._decision(self._validated(X))
+        return yhat if is_tensor(yhat) else _maybe_pandas_series(yhat, X)
 
-    def predict_std(self, X: "npt.NDArray | pd.DataFrame") -> "npt.NDArray | pd.Series":
-        """Bayesian estimate of the predictive standard deviation (ref ``:452-487``)."""
-        X_np = self._validated(X)
-        if self.primal_:
-            var = self._in_chunks(
-                X_np,
-                lambda X_c: primal_predict_var(
-                    X_c,
-                    self._device("M_map"),
-                    self._device("b_map"),
-                    self._device("Qs"),
-                    self._device("lam"),
-                    self._device("gamma"),
-                    self._device("inv_c0"),
-                ),
-            )
-        else:
-            var = self._in_chunks(
-                self.dual_feature_map_.transform(X_np),
-                lambda X_c: dual_predict_var(X_c, self._device("X_train"), self._device("chol")),
-            )
+    def predict_std(
+        self, X: "npt.NDArray | torch.Tensor | pd.DataFrame"
+    ) -> "npt.NDArray | torch.Tensor | pd.Series":
+        """Bayesian estimate of the predictive standard deviation (ref ``:452-487``).
+
+        Uncalibrated; its value is as a nonconformity score for the conformal stack. A
+        tensor on the model's device comes back as a tensor on that device.
+        """
+        X_v = self._validated(X)
+        var = self._serve(
+            X_v,
+            lambda X_c: primal_predict_var(
+                X_c,
+                self._device("M_map"),
+                self._device("b_map"),
+                self._device("Qs"),
+                self._device("lam"),
+                self._device("gamma"),
+                self._device("inv_c0"),
+            ),
+            lambda X_c: dual_predict_var(X_c, self._device("X_train"), self._device("chol")),
+            device_out=is_tensor(X_v),
+        )
+        if is_tensor(var):
+            return torch.sqrt(torch.clamp(var, min=0.0))
         return _maybe_pandas_series(np.sqrt(np.maximum(var, 0.0)), X)
 
     # ------------------------------------------------------------------- prediction
 
     def predict(
         self,
-        X: "npt.NDArray | pd.DataFrame",
+        X: "npt.NDArray | torch.Tensor | pd.DataFrame",
         *,
         coverage: float | None = None,
         quantiles: npt.ArrayLike | None = None,
-    ) -> "npt.NDArray | pd.Series":
-        """Predict labels (classifier) or values (regressor) on a given dataset."""
-        if coverage is not None or quantiles is not None:
-            raise _not_ported("predict(coverage=…/quantiles=…)", "Queue 1 item 7, calibration")
+    ) -> "npt.NDArray | torch.Tensor | pd.Series | pd.DataFrame":
+        """Predict on a given dataset: labels (classifier) or values (regressor), an
+        interval under ``coverage=``, or quantiles under ``quantiles=``.
+
+        A tensor on the model's device gives a regressor with a floating target a tensor
+        of point predictions on that device. Class labels and other target dtypes are
+        mapped on the host from the pulled ŷ and come back as NumPy.
+        """
+        if coverage is not None and quantiles is not None:
+            msg = "Pass coverage or quantiles, not both."
+            raise ValueError(msg)
+        if coverage is not None:
+            return self.predict_interval(X, coverage=coverage)
+        if quantiles is not None:
+            return self.predict_quantiles(X, quantiles=quantiles)
         yhat_df = self._decision(self._validated(X))
+        if is_tensor(yhat_df):
+            if self._estimator_type == "regressor" and np.issubdtype(self.y_dtype_, np.floating):
+                return yhat_df.to(torch_dtype(self.y_dtype_))
+            yhat_df = yhat_df.cpu().numpy()
         if self._estimator_type == "classifier":
             # Ties at 0 break to the negative class (sklearn decision_function contract).
             yhat_sign = np.sign(yhat_df)
@@ -586,17 +807,38 @@ class NeoLSSVM(BaseEstimator):
             yhat = yhat.astype(self.y_dtype_)
         return _maybe_pandas_series(yhat, X)
 
-    def predict_proba(self, X: Any) -> Any:
-        """Calibrated class probabilities: not ported yet."""
-        raise _not_ported("predict_proba", "Queue 1 item 7, calibration")
+    def predict_proba(
+        self, X: "npt.NDArray | torch.Tensor | pd.DataFrame"
+    ) -> "npt.NDArray | torch.Tensor | pd.Series | pd.DataFrame":
+        """Predict class probabilities (classifier) or point predictions (regressor).
 
-    def predict_quantiles(self, X: Any, *, quantiles: Any = (0.025, 0.05, 0.1, 0.5, 0.9, 0.95, 0.975)) -> Any:
-        """Conformally calibrated quantiles: not ported yet."""
-        raise _not_ported("predict_quantiles", "Queue 1 item 7, calibration")
-
-    def predict_interval(self, X: Any, *, coverage: float = 0.95) -> Any:
-        """Conformally calibrated prediction intervals: not ported yet."""
-        raise _not_ported("predict_interval", "Queue 1 item 7, calibration")
+        A tensor on the model's device stays there: a classifier returns the (n, 2)
+        calibrated probabilities as a tensor (the isotonic calibration is an ``interp`` on
+        the device against the float64 thresholds), a regressor its point predictions.
+        """
+        yhat_df = self._decision(self._validated(X))
+        is_classifier = self._estimator_type == "classifier"
+        if is_tensor(yhat_df):
+            if not is_classifier:
+                return yhat_df
+            proba_pos = interp(yhat_df.to(torch.float64), *self._iso_thresholds_device())
+            return torch.stack([1 - proba_pos, proba_pos], dim=1).to(yhat_df.dtype)
+        if is_classifier:
+            proba_pos = self.predict_proba_calibrator_.transform(yhat_df)
+            proba = np.hstack([1 - proba_pos[:, np.newaxis], proba_pos[:, np.newaxis]])
+        else:
+            proba = yhat_df
+            if not np.issubdtype(self.y_dtype_, np.integer):
+                proba = yhat_df.astype(self.y_dtype_)
+        if is_pandas(X):
+            try:
+                import pandas as pd
+            except ImportError:
+                return proba
+            if is_classifier:
+                return pd.DataFrame(proba, index=X.index, columns=self.classes_)
+            return pd.Series(proba, index=X.index)
+        return proba
 
     def score(
         self,
@@ -605,7 +847,7 @@ class NeoLSSVM(BaseEstimator):
         sample_weight: npt.NDArray | None = None,
     ) -> float:
         """Accuracy (classifier) or R² (regressor) on the given data."""
-        yhat = self.predict(X)
+        yhat, y = (v.detach().cpu().numpy() if is_tensor(v) else v for v in (self.predict(X), y))
         if self._estimator_type == "classifier":
             return accuracy_score(np.asarray(y), np.asarray(yhat), sample_weight=sample_weight)
         return r2_score(
@@ -613,3 +855,21 @@ class NeoLSSVM(BaseEstimator):
             np.asarray(yhat).astype(np.float64),
             sample_weight=sample_weight,
         )
+
+    # ---------------------------------------------------------------- persistence
+
+    def to_state_dict(self) -> dict[str, Any]:
+        """The fitted model as a nested dict of plain arrays and scalars, in the layout of
+        the JAX package's state dicts. ``NeoLSSVM.from_state_dict`` restores a model whose
+        predictions are bit-identical. Plain pickling also works."""
+        from neo_ls_svm_torch.utils.serialization import model_to_state_dict  # noqa: PLC0415
+
+        check_is_fitted(self, ["γ_"])
+        return model_to_state_dict(self)
+
+    @classmethod
+    def from_state_dict(cls, state: dict[str, Any], device: "str | torch.device" = "cuda") -> "NeoLSSVM":
+        """Rebuild a fitted model on ``device`` from :meth:`to_state_dict` output."""
+        from neo_ls_svm_torch.utils.serialization import model_from_state_dict  # noqa: PLC0415
+
+        return model_from_state_dict(state, device=device)

@@ -10,8 +10,9 @@ The reference compiles the sequential knot searches with numba (``_quantizer.py:
 They are inherently sequential scans over the *unique* values of one vector, run once per
 fit on the target only — host CPU is the right place for them (they gate no device math).
 
-A copy of ``neo_ls_svm_tpu.ops.quantizer`` that always runs the pure-Python scan: the JAX
-package's native C++ scan is behaviourally identical and only faster.
+A copy of ``neo_ls_svm_tpu.ops.quantizer``. The scan runs in C++ (``native/knot_scan.cpp``)
+where the native library could be built, else in Python (``_scan_knot``, the plain version):
+both give the same knots, and ``native.backend()`` says which one runs.
 """
 
 from typing import Any
@@ -19,6 +20,7 @@ from typing import Any
 import numpy as np
 import numpy.typing as npt
 
+from neo_ls_svm_torch import native
 from neo_ls_svm_torch.utils.base import BaseEstimator, TransformerMixin
 from neo_ls_svm_torch.utils.validation import check_array
 
@@ -86,6 +88,7 @@ def hist_quantized_ecdf(
     # float64/int64 (cast once here).
     xs = np.concatenate(([-np.inf], uniq.astype(np.float64), [np.inf]))
     ys = np.concatenate(([0], cum.astype(np.int64), [np.iinfo(np.int64).max]))
+    scan = native.knot_scan if native.available() else _scan_knot
     left, right = 1, len(xs) - 1
     edges_left: list[float] = [float(uniq[0])]
     edges_right: list[float] = [float(uniq[-1])]
@@ -95,8 +98,8 @@ def hist_quantized_ecdf(
     edges: list[float] = []
     while left < right:
         prev_left, prev_right = left, right
-        left, count_left = _scan_knot(xs, ys, left, abs_bin_error, abs_bin_size, +1)
-        right, count_right = _scan_knot(xs, ys, right, abs_bin_error, abs_bin_size, -1)
+        left, count_left = scan(xs, ys, left, abs_bin_error, abs_bin_size, +1)
+        right, count_right = scan(xs, ys, right, abs_bin_error, abs_bin_size, -1)
         hist_left.append(count_left)
         hist_right.insert(0, count_right)
         edges_left.append(float((xs[left] + xs[left - 1]) / 2) if left > 0 else float(xs[left]))

@@ -161,6 +161,11 @@ def _interp_rows(q: torch.Tensor, p: torch.Tensor, a: torch.Tensor) -> torch.Ten
     return torch.where(qq > p[:, -1:], a[:, -1:], f)
 
 
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp(x, xp, fp)`` for a vector x and one set of knots, on tensors."""
+    return _interp_rows(x[None, :], xp[None, :], fp[None, :])[0]
+
+
 def weighted_quantile_torch(
     a: torch.Tensor, w: torch.Tensor, q: "torch.Tensor | float", axis: int = 0
 ) -> torch.Tensor:

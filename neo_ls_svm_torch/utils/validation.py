@@ -191,6 +191,26 @@ def check_X_y(
     return X, y
 
 
+def check_sample_weight(
+    sample_weight: Any, n_samples: int, dtype: npt.DTypeLike = np.float64
+) -> npt.NDArray[np.floating]:
+    """Validate a sample-weight vector: 1-D, length n, nonnegative, not all zero."""
+    sample_weight = np.asarray(sample_weight, dtype=dtype)
+    if sample_weight.ndim != 1:
+        msg = f"Sample weights must be 1D array or scalar, got shape {sample_weight.shape}."
+        raise ValueError(msg)
+    if sample_weight.shape[0] != n_samples:
+        msg = f"sample_weight.shape == {sample_weight.shape}, expected ({n_samples},)!"
+        raise ValueError(msg)
+    if np.any(sample_weight < 0):
+        msg = "Sample weights must be nonnegative."
+        raise ValueError(msg)
+    if np.sum(sample_weight) <= 0:
+        msg = "The sample weights are all zero; at least one weight must be positive."
+        raise ValueError(msg)
+    return sample_weight
+
+
 def train_test_split(
     *arrays: Any,
     train_size: int | float | None = None,

@@ -8,8 +8,10 @@ draw from different generators, so their scores are held within 0.015 of each ot
 the host route (the gate of the JAX package's own tests), and the narrow ``transfer`` modes
 within 0.03 LOO R². ``pre_transform_`` and ``transfer_`` equal the JAX package's on every
 call made here. Also: a JAX state dict carried across with ``from_jax_state_dict`` predicts
-what the JAX model predicts, the estimator never runs on the CPU unless asked to, and what
-the port does not cover yet raises ``NotImplementedError``.
+what the JAX model predicts, the estimator never runs on the CPU unless asked to, what the
+port does not cover yet raises ``NotImplementedError``, and the calibrated serving entries
+(``predict_proba``, ``predict_quantiles``, ``predict_interval``, ``predict(coverage=…)``)
+answer what the JAX model answers at rtol 1e-6.
 """
 
 import numpy as np
@@ -113,37 +115,41 @@ def test_fit_without_cpu_request_raises_when_cuda_is_unavailable() -> None:
         t_est.NeoLSSVM().fit(X, y)
 
 
-_NOT_PORTED = {
-    "mesh": ({"mesh": "auto"}, {}),
-    "tensor_input": ({}, {"tensor": True}),
+def test_fit_raises_for_what_is_not_ported() -> None:
+    X, y, _ = _data("regression")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        t_est.NeoLSSVM(device="cpu", mesh="auto").fit(X, y)
+
+
+def test_fit_takes_a_tensor_on_the_models_device() -> None:
+    """A tensor X takes the device pre-transform and fits what the same NumPy rows fit."""
+    X, y, X_test = _data("regression")
+    params = {"primal_feature_map": TorchORFF(num_features=32), "device": "cpu"}
+    from_tensor = t_est.NeoLSSVM(**params).fit(torch.from_numpy(X), y)
+    from_numpy = t_est.NeoLSSVM(pre_transform="device", **params).fit(X, y)
+    assert from_tensor.pre_transform_ == "device"
+    assert from_tensor.γ_ == from_numpy.γ_
+    np.testing.assert_array_equal(from_tensor.predict(X_test), from_numpy.predict(X_test))
+
+
+_SERVING = {
+    "predict_proba": lambda m, X: m.predict_proba(X),
+    "predict_quantiles": lambda m, X: m.predict_quantiles(X),
+    "predict_interval": lambda m, X: m.predict_interval(X),
+    "predict_coverage": lambda m, X: m.predict(X, coverage=0.9),
 }
 
 
-@pytest.mark.parametrize("case", sorted(_NOT_PORTED))
-def test_fit_raises_for_what_is_not_ported(case: str) -> None:
-    params, how = _NOT_PORTED[case]
-    X, y, _ = _data("regression")
-    X, y = X[: how.get("n", N)], y[: how.get("n", N)]
-    if how.get("tensor"):
-        X = torch.from_numpy(X)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_est.NeoLSSVM(device="cpu", **params).fit(X, y)
-
-
-@pytest.mark.parametrize(
-    "method", ["predict_proba", "predict_quantiles", "predict_interval", "predict_coverage"]
-)
-def test_serving_raises_for_what_is_not_ported(method: str) -> None:
+@pytest.mark.parametrize("method", sorted(_SERVING))
+def test_serving_entries_match_jax(method: str) -> None:
+    """Each calibrated serving entry of a classifier against the JAX model's host lane, at
+    rtol 1e-6 (the fits agree at 1e-6, the LPs are the same LPs)."""
     X, y, X_test = _data("classification")
-    model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=16), device="cpu").fit(X, y)
-    call = {
-        "predict_proba": lambda: model.predict_proba(X_test),
-        "predict_quantiles": lambda: model.predict_quantiles(X_test),
-        "predict_interval": lambda: model.predict_interval(X_test),
-        "predict_coverage": lambda: model.predict(X_test, coverage=0.9),
-    }[method]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call()
+    ours = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=16), device="cpu").fit(X, y)
+    theirs = j_est.NeoLSSVM(primal_feature_map=JaxORFF(num_features=16), pre_transform="host").fit(X, y)
+    out = _SERVING[method](ours, X_test)
+    assert out.shape == ((len(X_test), 2) if method == "predict_proba" else (len(X_test), out.shape[1], 2))
+    np.testing.assert_allclose(out, _SERVING[method](theirs, X_test), rtol=1e-6, atol=1e-9)
 
 
 # ------------------------------------------------------------------ the dual route

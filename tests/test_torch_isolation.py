@@ -1,5 +1,6 @@
 """The port stands alone: neither ``neo_ls_svm_torch`` nor ``chip_smoke.py`` imports JAX
-or the JAX package, at import time or anywhere in their source."""
+or the JAX package, at import time or anywhere in their source. The modules of the
+calibration and persistence layer import no scikit-learn either."""
 
 import ast
 import subprocess
@@ -13,6 +14,20 @@ FORBIDDEN = ("jax", "jaxlib", "neo_ls_svm_tpu")
 SOURCES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "neo_ls_svm_torch").rglob("*.py")
 ) + ["chip_smoke.py"]
+
+
+# The calibration and persistence layer: no scikit-learn (the machine with the card
+# promises none), beside no JAX.
+NO_SKLEARN = [
+    "neo_ls_svm_torch/native/__init__.py",
+    "neo_ls_svm_torch/models/isotonic.py",
+    "neo_ls_svm_torch/models/cqr.py",
+    "neo_ls_svm_torch/models/conformal.py",
+    "neo_ls_svm_torch/models/estimator.py",
+    "neo_ls_svm_torch/utils/serialization.py",
+    "neo_ls_svm_torch/utils/device.py",
+    "chip_smoke.py",
+]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -31,6 +46,13 @@ def test_source_imports_nothing_of_jax(source: str) -> None:
     assert not bad, f"{source} imports {bad}"
 
 
+@pytest.mark.parametrize("source", NO_SKLEARN)
+def test_source_imports_no_sklearn(source: str) -> None:
+    assert source in SOURCES
+    bad = [m for m in _imported_modules(REPO / source) if m.split(".")[0] == "sklearn"]
+    assert not bad, f"{source} imports {bad}"
+
+
 def test_importing_the_port_loads_no_jax() -> None:
     modules = [
         "neo_ls_svm_torch",
@@ -43,6 +65,12 @@ def test_importing_the_port_loads_no_jax() -> None:
         "neo_ls_svm_torch.ops.cuda.gram",
         "neo_ls_svm_torch.ops.cuda.sweep",
         "neo_ls_svm_torch.utils.serialization",
+        "neo_ls_svm_torch.utils.device",
+        "neo_ls_svm_torch.native",
+        "neo_ls_svm_torch.models.isotonic",
+        "neo_ls_svm_torch.models.cqr",
+        "neo_ls_svm_torch.models.conformal",
+        "neo_ls_svm_torch.models.estimator",
     ]
     code = (
         "import importlib, sys\n"
