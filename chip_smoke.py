@@ -66,6 +66,25 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
     trip, predict bit for bit what ``m`` does (decision, std, probabilities or quantiles).
 13. ``tensor_io``: ``fit`` on a CUDA tensor against ``fit`` on the same NumPy rows, three
     fits each in turns: γ equal, LOO R² within 1e-6, the seconds and peak device memory of each.
+14. ``mesh``: the multi-GPU route (``neo_ls_svm_torch/parallel``). Four ranks spawned on the
+    one card form a gloo group on CUDA tensors (NCCL refuses two ranks on one card; gloo
+    passes the sums through the host), sharing ``.npy`` files under ``build/mesh_smoke``.
+    (a) ``sharded_primal_fit_streaming`` on a (4, 1) mesh with the 1M fit's own X, M, b and
+    y, ``row_chunk`` 16,384: one K1 and one K2 launch on each rank's 262,144 rows, on the
+    3×TF32 path; against ``primal_fit_streaming`` on one GPU, the objective over the γ grid
+    within K2's f32 limit (relative 1e-4), the same γ index (or both indices' objectives
+    within that limit) and LOO R² within 1e-5; in f64 at 131,072 rows γ equal and β at rtol
+    1e-9. (b) The same on (2, 2), the feature axis in plain torch: no launch, LOO R² within
+    1e-5 of (a). (c) ``NeoLSSVM(mesh="auto")`` on 4,194,304 rows, twice on every rank: the
+    device pre-transform on rank 0, then K1 and K2 once on each rank's 1,048,576 rows;
+    against the single-GPU default fit, γ as in (a), LOO R² within 1e-5, ``predict`` on the
+    65,536 held-out rows at rtol 1e-4, every rank's ``loo_residuals_`` equal to rank 0's;
+    then three more ``random_state`` values on both sides, their LOO R² distance reported,
+    beside one GPU's own distance between the rows as given and reordered at each draw.
+    (d) NCCL in a world of one rank: the default 1M fit through the mesh route, γ equal and
+    LOO R² within 1e-6 of the single-GPU fit; with two or more cards, NCCL over up to four
+    of them with the checks of (c). Four ranks on one card say nothing of scaling.
+    ``python3 chip_smoke.py mesh`` runs the build and this phase only.
 
 Then a ``kernels`` line, the card's name and power limit as ``nvidia-smi`` reports them,
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -77,6 +96,7 @@ import json
 import math
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1001,6 +1021,264 @@ def phase_tensor_io(X, y, dev: torch.device) -> None:
     emit({"phase": "tensor_io", "n": len(y), **records})
 
 
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh_smoke"
+MESH_RANKS, MESH_ROW_CHUNK, N_MESH_FIT = 4, 16_384, 1 << 22
+# More random_state values of the (c) fit, whose LOO R² distance from one GPU's is
+# reported (not gated): how much room the 1e-5 gate has beyond the default draw.
+MESH_DRAWS = (1, 2, 3)
+# K2's f32 limit (relative, over the whole γ grid), and how far the LOO R² of two fits of
+# the same rows may part when one sums the Gram and the sweep over 4 row shards.
+SWEEP_TOL_F32, MESH_LOO_TOL = 1e-4, 1e-5
+
+
+def note(what: str) -> None:
+    """A progress line on standard error, for a run that stops in the middle of a phase."""
+    print(f"[{time.strftime('%H:%M:%S')}] {what}", file=sys.stderr, flush=True)
+
+
+def _launches_by_path() -> dict:
+    return {"fused_augmented_gram": dict(gram_mod.path_launches), "fused_loo_sweep": dict(sweep_mod.path_launches)}
+
+
+def _one_launch_each(path: str) -> dict:
+    other = _build.PATH_FP64 if path == _build.PATH_TF32 else _build.PATH_TF32
+    return {name: {path: 1, other: 0} for name in ("fused_augmented_gram", "fused_loo_sweep")}
+
+
+def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple) -> None:
+    """One rank of the ``mesh`` phase, in a process of its own. With gloo every rank
+    computes on card 0 (the sums pass through the host); with NCCL rank r on card r."""
+    import datetime  # noqa: PLC0415
+
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from neo_ls_svm_torch.parallel.mesh import make_mesh, sharded_primal_fit_streaming  # noqa: PLC0415
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    dist.init_process_group(backend, init_method=f"file://{workdir}/rendezvous-{backend}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=600))
+    load = lambda name: np.load(workdir / f"{name}.npy", mmap_mode="r")  # noqa: E731
+    out = {}
+    note(f"mesh: {backend} rank {rank} of {world} joined")
+    if "functions" in tasks:
+        X, y, M_map, b_map = (load(k) for k in ("X", "y", "M", "b"))
+        kw = {"is_classifier": False, "row_chunk": MESH_ROW_CHUNK}
+        meshes = {shape: make_mesh(*shape) for shape in ((world, 1), (world // 2, 2))}
+        for tag, shape, rows, dtype in (("f32", (world, 1), len(y), np.float32),
+                                         ("f64", (world, 1), N_KERNEL, np.float64),
+                                         ("feature_axis", (world // 2, 2), len(y), np.float32)):
+            mesh = meshes[shape]
+            ops = [np.asarray(a[:rows] if a.shape[0] == len(y) else a, dtype) for a in (X, M_map, b_map, y)]
+            reset_launches()
+            seconds, r = timed(lambda: sharded_primal_fit_streaming(  # noqa: B023
+                mesh, ops[0], ops[1], ops[2], ops[3], np.ones(rows, dtype), gamma_grid(dtype), **kw))
+            note(f"mesh: {backend} rank {rank}: {tag} fit {seconds:.2f} s")
+            out[tag] = {"seconds": seconds, "launches_by_path": _launches_by_path(),
+                        **{k: r[k].cpu().numpy() for k in ("loo_errors_gammas", "optimum_index", "loo_score", "beta_emb")}}
+    if "estimator" in tasks:
+        # Two fits: the first builds the mesh's groups and warms the libraries; the
+        # launches and results are the second's.
+        seconds = []
+        for _ in range(2):
+            reset_launches()
+            fit_s, model = timed(lambda: NeoLSSVM(mesh="auto").fit(load("X4"), load("y4")))
+            seconds.append(fit_s)
+        note(f"mesh: {backend} rank {rank}: estimator fits {seconds}")
+        out["estimator"] = {"seconds": seconds, "launches_by_path": _launches_by_path(),
+                            "mesh_shape": tuple(model.mesh_.shape), "pre_transform": model.pre_transform_,
+                            "loo_errors_gammas": model.loo_errors_γs_, "loo_score": model.loo_score_,
+                            "predict": model.predict(load("X_test"))}
+        np.save(workdir / f"loo_residuals-{backend}-{rank}.npy", model.loo_residuals_)
+        out["draws"] = {seed: NeoLSSVM(mesh="auto", random_state=seed).fit(load("X4"), load("y4")).loo_score_
+                        for seed in MESH_DRAWS}
+    dist.destroy_process_group()
+    (workdir / f"rank-{backend}-{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def run_ranks(world: int, workdir: Path, backend: str, tasks: tuple, timeout: float = 600.0) -> list[dict]:
+    """Start ``world`` ranks of ``_mesh_rank`` and wait for them; fail unless every rank
+    exited with 0 within ``timeout`` seconds."""
+    import torch.multiprocessing as mp  # noqa: PLC0415
+
+    context = mp.start_processes(_mesh_rank, args=(world, workdir, backend, tasks), nprocs=world,
+                                 join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not context.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            check(time.monotonic() < deadline, f"mesh: the {backend} ranks did not finish within {timeout} s")
+    finally:
+        for proc in context.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=30)
+    codes = [proc.exitcode for proc in context.processes]
+    check(codes == [0] * world, f"mesh: {backend} rank exit codes {codes}")
+    return [pickle.loads((workdir / f"rank-{backend}-{rank}.pkl").read_bytes()) for rank in range(world)]
+
+
+def objective_agreement(ours: np.ndarray, i_ours: int, ref: np.ndarray, i_ref: int, tag: str) -> dict:
+    """Hold a γ-grid objective against the single-GPU one: relative error over the grid
+    within K2's f32 limit, and the same argmin, or else an argmin whose objective is within
+    that limit of the reference minimum."""
+    rel = float(np.max(np.abs(ours.astype(np.float64) - ref) / np.abs(ref)))
+    check(rel <= SWEEP_TOL_F32, f"{tag}: objective relative error {rel}")
+    gap = abs(float(ref[i_ours]) - float(ref[i_ref])) / abs(float(ref[i_ref]))
+    check(i_ours == i_ref or gap <= SWEEP_TOL_F32, f"{tag}: γ index {i_ours} vs {i_ref}, objective gap {gap}")
+    return {"objective_rel_err": rel, "gamma_index": i_ours, "single_gamma_index": i_ref, "index_objective_gap": gap}
+
+
+def hold_estimator_ranks(ranks: list[dict], single: NeoLSSVM, single_predict: np.ndarray, single_draws: dict,
+                         workdir: Path, backend: str) -> dict:
+    """Checks of a multi-rank ``NeoLSSVM(mesh="auto")`` fit against the single-GPU default fit."""
+    world = len(ranks)
+    first = ranks[0]["estimator"]
+    ref = single.loo_errors_γs_.astype(np.float64)
+    agree = objective_agreement(first["loo_errors_gammas"], int(np.argmin(first["loo_errors_gammas"])), ref,
+                                int(np.argmin(ref)), f"mesh {backend} estimator")
+    residuals = np.load(workdir / f"loo_residuals-{backend}-0.npy")
+    for rank, result in enumerate(ranks):
+        est_r = result["estimator"]
+        check(est_r["mesh_shape"] == (world, 1) and est_r["pre_transform"] == "device",
+              f"mesh {backend} rank {rank}: mesh {est_r['mesh_shape']}, pre-transform {est_r['pre_transform']}")
+        check(est_r["launches_by_path"] == _one_launch_each(_build.PATH_TF32),
+              f"mesh {backend} rank {rank}: launches {est_r['launches_by_path']}")
+        check(bool(np.array_equal(np.load(workdir / f"loo_residuals-{backend}-{rank}.npy"), residuals)),
+              f"mesh {backend} rank {rank}: loo_residuals_ differ from rank 0's")
+    loo_diff = abs(first["loo_score"] - single.loo_score_)
+    check(loo_diff <= MESH_LOO_TOL, f"mesh {backend} estimator: LOO R² {first['loo_score']} vs {single.loo_score_}")
+    # rtol 1e-4, and an absolute floor of 1e-5 of the predictions' scale for the ŷ near 0.
+    np.testing.assert_allclose(first["predict"], single_predict, rtol=1e-4,
+                               atol=1e-5 * float(np.max(np.abs(single_predict))), err_msg="mesh predict")
+    draw_diffs = {seed: abs(ranks[0]["draws"][seed] - single_draws[seed]) for seed in MESH_DRAWS}
+    return {"ranks": world, "mesh_fit_s": first["seconds"], "loo_score": first["loo_score"], "loo_score_diff": loo_diff,
+            "loo_score_diff_by_random_state": draw_diffs, "loo_score_diff_max_over_draws": max(draw_diffs.values()),
+            "predict_max_abs_diff": float(np.max(np.abs(first["predict"] - single_predict))),
+            "launches_per_rank": [r["estimator"]["launches_by_path"] for r in ranks], **agree}
+
+
+def row_order_noise(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
+    """One GPU's own f32 sensitivity to the order of the rows, at each draw of (c): the
+    LOO R² of ``primal_fit_streaming`` on the rows as given and in a fixed random order,
+    with that draw's M and b. Exactly, the order changes nothing; in f32 it changes the
+    summation order of the Gram and the sweep, as the ranks' partial sums do."""
+    X_d, y_d = upload_rows(X, "float32", dev), est._to_device(y, dev)
+    w_d, g_d = torch.ones_like(y_d), torch.from_numpy(gamma_grid(np.float32)).to(dev)
+    order = torch.randperm(len(y), generator=torch.Generator().manual_seed(7)).to(dev)
+    diffs = {}
+    for seed in (42, *MESH_DRAWS):  # 42: the estimator's default random_state
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        pt = device_pre_transform(X_d, y_d, w_d, generator, **PT_KW)
+        loo = [float(primal_fit_streaming(X_d[rows], pt["M"], pt["b"], y_d[rows], w_d, g_d, None, is_classifier=False,
+                                          row_chunk=MESH_ROW_CHUNK)["loo_score"]) for rows in (slice(None), order)]
+        diffs[seed] = abs(loo[1] - loo[0])
+    return diffs
+
+
+def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
+    """The mesh route on the one card: 4 ranks with gloo on CUDA tensors (the sums pass
+    through the host), then NCCL in a world of one rank (and over several cards, where the
+    machine has them). Returns each kernel's launches on each rank in the estimator fit."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from neo_ls_svm_torch.parallel.mesh import make_mesh  # noqa: PLC0415
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    X, y = make_dataset(1 << 20, D_IN, seed=0)
+    X4, y4 = make_dataset(N_MESH_FIT, D_IN, seed=0)
+    X_test, _ = make_dataset(65_536, D_IN, seed=1)
+    X_d, y_d = upload_rows(X, "float32", dev), est._to_device(y, dev)
+    w_d = torch.ones_like(y_d)
+    pt = device_pre_transform(X_d, y_d, w_d, pt_generator(dev), **PT_KW)  # the 1M fit's M and b
+    for name, array in (("X", X), ("y", y), ("M", pt["M"].cpu().numpy()), ("b", pt["b"].cpu().numpy()),
+                        ("X4", X4), ("y4", y4), ("X_test", X_test)):
+        np.save(MESH_DIR / f"{name}.npy", array)
+    # The single-GPU references: primal_fit_streaming on the same operands, f32 and f64,
+    # and the default estimator on the 4M rows.
+    single = {}
+    for tag, rows, dtype in (("f32", len(y), np.float32), ("f64", N_KERNEL, np.float64)):
+        g_d = torch.from_numpy(gamma_grid(dtype)).to(dev)
+        ops = [a[:rows].to(g_d.dtype) if a.shape[0] == len(y) else a.to(g_d.dtype) for a in (X_d, pt["M"], pt["b"], y_d, w_d)]
+        result = primal_fit_streaming(*ops, g_d, None, is_classifier=False, row_chunk=MESH_ROW_CHUNK, num_samples=rows)
+        single[tag] = {k: v.cpu().numpy() for k, v in result.items()}
+    del X_d, y_d, w_d, pt
+    note("mesh: single-GPU references of (a) done")
+    single_fit_s = []
+    for _ in range(2):
+        fit_s, single_model = timed(lambda: NeoLSSVM(device=dev).fit(X4, y4))
+        single_fit_s.append(fit_s)
+    single_predict = single_model.predict(X_test)
+    single_draws = {seed: NeoLSSVM(device=dev, random_state=seed).fit(X4, y4).loo_score_ for seed in MESH_DRAWS}
+    order_noise = row_order_noise(X4, y4, dev)
+    torch.cuda.empty_cache()
+    note(f"mesh: single-GPU 4M fits {single_fit_s} s; starting {MESH_RANKS} gloo ranks")
+    ranks = run_ranks(MESH_RANKS, MESH_DIR, "gloo", ("functions", "estimator"))
+    record: dict = {"phase": "mesh", "multi_rank_backend": "gloo on CUDA tensors: 4 ranks on one card, sums through the host",
+                    "single_gpu_row_order_loo_diff_by_random_state": order_noise}
+    # (a) Function level, (4, 1): K1 and K2 once on each rank's 262,144 rows.
+    f32 = ranks[0]["f32"]
+    for rank, result in enumerate(ranks):
+        for tag, path in (("f32", _build.PATH_TF32), ("f64", _build.PATH_FP64)):
+            check(result[tag]["launches_by_path"] == _one_launch_each(path),
+                  f"mesh {tag} rank {rank}: launches {result[tag]['launches_by_path']}")
+        check(int(result["f32"]["optimum_index"]) == int(f32["optimum_index"]), f"mesh: rank {rank} took another γ")
+    agree = objective_agreement(f32["loo_errors_gammas"], int(f32["optimum_index"]),
+                                single["f32"]["loo_errors_gammas"].astype(np.float64),
+                                int(single["f32"]["optimum_index"]), "mesh f32")
+    loo_a = float(f32["loo_score"])
+    check(abs(loo_a - float(single["f32"]["loo_score"])) <= MESH_LOO_TOL,
+          f"mesh f32: LOO R² {loo_a} vs {single['f32']['loo_score']}")
+    f64 = ranks[0]["f64"]
+    check(int(f64["optimum_index"]) == int(single["f64"]["optimum_index"]), "mesh f64: γ differs")
+    np.testing.assert_allclose(f64["beta_emb"], single["f64"]["beta_emb"], rtol=1e-9, atol=1e-12, err_msg="mesh f64 β")
+    record["function_level"] = {
+        "mesh": [MESH_RANKS, 1], "rows_per_rank": (1 << 20) // MESH_RANKS, "row_chunk": MESH_ROW_CHUNK,
+        "seconds_rank0": f32["seconds"], "loo_score": loo_a, "single_loo_score": float(single["f32"]["loo_score"]),
+        **agree, "f64_rows": N_KERNEL, "f64_beta_max_abs_diff": float(np.max(np.abs(f64["beta_emb"] - single["f64"]["beta_emb"]))),
+        "launches_per_rank": [r["f32"]["launches_by_path"] for r in ranks],
+    }
+    # (b) The feature axis, (2, 2): plain torch passes, no kernel.
+    feature = ranks[0]["feature_axis"]
+    check(all(v == 0 for p in feature["launches_by_path"].values() for v in p.values()), "mesh (2, 2) launched a kernel")
+    check(abs(float(feature["loo_score"]) - loo_a) <= MESH_LOO_TOL, f"mesh (2, 2): LOO R² {feature['loo_score']} vs {loo_a}")
+    record["feature_axis"] = {"mesh": [MESH_RANKS // 2, 2], "seconds_rank0": feature["seconds"],
+                              "loo_score": float(feature["loo_score"]), "gamma_index": int(feature["optimum_index"])}
+    # (c) The estimator, NeoLSSVM(mesh="auto") on 4,194,304 rows.
+    record["estimator"] = {"n": N_MESH_FIT,
+                           **hold_estimator_ranks(ranks, single_model, single_predict, single_draws, MESH_DIR, "gloo"),
+                           "single_fit_s": single_fit_s,
+                           "note": "four ranks share one card and sum through the host: the times say nothing of scaling"}
+    estimator_launches = {name: [r["estimator"]["launches_by_path"][name][_build.PATH_TF32] for r in ranks]
+                          for name in ("fused_augmented_gram", "fused_loo_sweep")}
+    # (d) NCCL: a world of one rank through the mesh route, against the default 1M fit.
+    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR}/rendezvous-nccl-one", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(num_data=1)
+        reset_launches()
+        one_s, one = timed(lambda: NeoLSSVM(device=dev, mesh=mesh).fit(X, y))
+        one_launches = read_launches("the NCCL world-of-one fit")
+    finally:
+        dist.destroy_process_group()
+    ref_s, ref = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
+    check(one.γ_ == ref.γ_ and abs(one.loo_score_ - ref.loo_score_) <= 1e-6,
+          f"mesh NCCL world of one: γ {one.γ_} vs {ref.γ_}, LOO R² {one.loo_score_} vs {ref.loo_score_}")
+    record["nccl_world_of_one"] = {"n": len(y), "fit_s": one_s, "single_fit_s": ref_s, "gamma": one.γ_,
+                                   "loo_score": one.loo_score_, "single_loo_score": ref.loo_score_, "launches": one_launches}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(cards, 4)
+        nccl = run_ranks(world, MESH_DIR, "nccl", ("estimator",))
+        record["nccl_cards"] = {**hold_estimator_ranks(nccl, single_model, single_predict, single_draws, MESH_DIR, "nccl"),
+                                "single_fit_s": single_fit_s}
+    else:
+        record["nccl_cards"] = f"not run: {cards} card"
+    emit(record)
+    return estimator_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1019,6 +1297,11 @@ def main() -> int:
     _build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "torch": torch.__version__,
           "cuda": torch.version.cuda, "ptxas": ptxas_report(_build.build_log)})
+    if sys.argv[1:] == ["mesh"]:  # the mesh phase alone, e.g. on a machine with several cards
+        phase_mesh(dev)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+        return 0
     data = phase_gram(dev)
     phase_sweep(data)
     del data
@@ -1036,6 +1319,9 @@ def main() -> int:
     phase_state_dict({"classifier": classifier, "regressor": regressor}, X_test, dev)
     del classifier, regressor
     phase_tensor_io(X, y, dev)
+    mesh_launches = phase_mesh(dev)
+    for kernel in (gram_record, sweep_record):
+        kernel["mesh_launches_per_rank"] = mesh_launches[kernel["name"]]
     emit({"kernels": [gram_record, sweep_record]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

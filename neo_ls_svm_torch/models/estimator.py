@@ -13,9 +13,12 @@ The estimator runs on the card (``device="cuda"``, the default) unless the calle
 for the CPU with ``device="cpu"``; it never moves to the CPU on its own. ``fit`` and every
 serving entry also take a ``torch.Tensor`` that already lies on the model's device: it is
 validated from its metadata only (no finiteness scan, no host copy) and the serving
-entries answer with a tensor on that device; a tensor on another device raises. What this
-port does not cover yet raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports it.
+entries answer with a tensor on that device; a tensor on another device raises.
+
+``mesh=`` fits on several GPUs, one process (rank) each (``parallel/mesh.py``): every rank
+calls ``fit`` with the full data, the rows are sharded over the mesh's ``data`` axis, and
+every rank ends with the whole fitted model on its own GPU, where it serves as a
+single-GPU model does.
 
 After a fit, the isotonic calibrator of a classifier and the two-level conformal split are
 made at first use (``predict_proba``, ``predict_quantiles``, pickling, …), not in ``fit``:
@@ -27,6 +30,7 @@ from typing import TYPE_CHECKING, Any, Literal
 import numpy as np
 import numpy.typing as npt
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from neo_ls_svm_torch.models import routing
 from neo_ls_svm_torch.models.conformal import ConformalMixin
@@ -48,6 +52,16 @@ from neo_ls_svm_torch.ops.orff import (
 )
 from neo_ls_svm_torch.ops.pretransform_device import DEVICE_PRETRANSFORM_BINS, device_pre_transform
 from neo_ls_svm_torch.ops.weighted_quantile import interp
+from neo_ls_svm_torch.parallel.collectives import group_size
+from neo_ls_svm_torch.parallel.mesh import (
+    AXES,
+    axis_size,
+    make_mesh,
+    mesh_device,
+    sharded_primal_fit,
+    sharded_primal_fit_device_pt,
+    sharded_primal_fit_streaming,
+)
 from neo_ls_svm_torch.utils.base import BaseEstimator, clone
 from neo_ls_svm_torch.utils.device import (
     is_tensor,
@@ -123,6 +137,20 @@ def _primal_working_set_bytes(n_rows: int, num_features: int, itemsize: int) -> 
     return 3 * n_rows * 2 * (num_features + 1) * itemsize
 
 
+def _complexity_embedding(
+    fm: KernelApproximatingFeatureMap, dtype: np.dtype, n_rows: int, device: torch.device
+) -> torch.Tensor | None:
+    """The surface-complexity regulariser in the real embedding, normalised: None for the
+    shipped identity; a custom feature map with a nontrivial matrix routes through the
+    whitened-GEVD path (ref _neo_ls_svm.py:116-124)."""
+    C = np.asarray(fm.complexity_matrix, dtype=dtype)
+    if np.array_equiv(C, C[0, 0] * np.eye(C.shape[0], dtype=dtype)):
+        return None
+    C_n = C / (np.mean(np.abs(np.diag(C))) * (n_rows * C.shape[0]))
+    zeros = np.zeros_like(C_n)
+    return _to_device(np.block([[C_n, zeros], [zeros, C_n]]), device)
+
+
 def _maybe_pandas_series(values: npt.NDArray, X_df: Any) -> Any:
     if is_pandas(X_df):
         try:
@@ -133,13 +161,6 @@ def _maybe_pandas_series(values: npt.NDArray, X_df: Any) -> Any:
     return values
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to neo_ls_svm_torch yet (ROADMAP.md, {item}); "
-        "use neo_ls_svm_tpu for it."
-    )
-
-
 class NeoLSSVM(ConformalMixin, BaseEstimator):
     """Neo LS-SVM: a modern least-squares SVM with O(n) training and hyperparameter-free
     LOO tuning, running its linear algebra on an NVIDIA GPU through PyTorch and
@@ -148,6 +169,12 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
     ``device`` names the torch device the solver runs on. It defaults to ``"cuda"``;
     ``fit`` raises when CUDA is unavailable unless ``device="cpu"`` was passed. A
     ``torch.Tensor`` input must lie on that device.
+
+    ``mesh`` is None (one device), ``"auto"`` (a mesh over every rank when a process
+    group of more than one rank is initialised, else None) or a
+    ``torch.distributed.device_mesh.DeviceMesh`` with axes ("data", "feature")
+    (``parallel.mesh.make_mesh``). A mesh fit runs on each rank's own device of the
+    mesh's device type.
     """
 
     def __init__(
@@ -183,8 +210,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         return resolve_device(self.device)
 
     def _check_options(self) -> None:
-        """Reject invalid option values (ValueError) and valid ones this port does not
-        cover yet (NotImplementedError)."""
+        """Reject invalid option values (ValueError)."""
         if self.pre_transform not in ("auto", "host", "device"):
             msg = f"pre_transform must be 'auto', 'host' or 'device', got {self.pre_transform!r}."
             raise ValueError(msg)
@@ -207,8 +233,25 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                 "feature upload would silently break."
             )
             raise ValueError(msg)
-        if self.mesh is not None:
-            raise _not_ported("mesh", "Queue 1 item 10, multi-GPU")
+
+    def _resolve_mesh(self, device: torch.device) -> DeviceMesh | None:
+        """``mesh_``: "auto" builds a mesh over every rank when a process group of more
+        than one rank exists (the JAX package's "more than one visible device"), else
+        None; a ("data", "feature") DeviceMesh passes through."""
+        if self.mesh is None:
+            return None
+        if isinstance(self.mesh, str) and self.mesh == "auto":
+            return make_mesh(device_type=device.type) if group_size(None) > 1 else None
+        if isinstance(self.mesh, DeviceMesh) and self.mesh.mesh_dim_names == AXES:
+            if self.mesh.device_type != device.type:
+                msg = f"the mesh computes on {self.mesh.device_type!r} devices, but device={self.device!r}."
+                raise ValueError(msg)
+            return self.mesh
+        msg = (
+            "mesh must be None, 'auto', or a torch.distributed.device_mesh.DeviceMesh with "
+            f"axes {AXES} (parallel.mesh.make_mesh), got {self.mesh!r}."
+        )
+        raise ValueError(msg)
 
     def _validate_fit_device_X(self, X: torch.Tensor, device: torch.device) -> torch.Tensor:
         """Metadata-only validation of a training X that is a tensor.
@@ -258,6 +301,9 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         """
         device = self._resolve_device()
         self._check_options()
+        self.mesh_ = self._resolve_mesh(device)
+        if self.mesh_ is not None:
+            device = mesh_device(self.mesh_)  # this rank's own GPU
         # The one pull of y and the weights, whichever of them are tensors.
         y, sample_weight = (
             v.detach().cpu().numpy() if is_tensor(v) else v for v in (y, sample_weight)
@@ -382,7 +428,10 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         dtype = y_.dtype  # X's dtype, as a NumPy dtype whether X is an array or a tensor
         num_features = int(getattr(fm, "num_features", 512))
         working_set_bytes = _primal_working_set_bytes(n_rows, num_features, dtype.itemsize)
-        route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
+        if self.mesh_ is not None:
+            route = "mesh"
+        else:
+            route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
         # The device pre-transform applies to a random-Fourier feature map whose
         # complexity matrix is the shipped identity (a subclass overriding
         # `complexity_matrix` needs the whitened-GEVD solver, which the host path feeds).
@@ -406,6 +455,12 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         # pre_transform_ records the route actually taken: an explicit
         # pre_transform="device" on an ineligible fit falls to the host path.
         self.pre_transform_ = "device" if use_device_pt else "host"
+        if self.transfer_ != "float32" and route == "mesh":
+            msg = (
+                f"transfer={self.transfer!r} is not supported on the mesh route: "
+                "sharded fits stage rows at full precision."
+            )
+            raise ValueError(msg)
         if self.transfer_ != "float32" and not use_device_pt:
             msg = (
                 f"transfer={self.transfer!r} only applies when the fit takes the "
@@ -416,6 +471,16 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             )
             raise ValueError(msg)
         self.γs_ = gamma_grid(dtype, num=1024)
+        if route == "mesh":
+            return self._fit_mesh(
+                X,
+                y_,
+                sample_weight_,
+                is_classifier=is_classifier,
+                device=device,
+                use_device_pt=use_device_pt,
+                stream=working_set_bytes / axis_size(self.mesh_, "data") > STREAMING_BYTES_THRESHOLD,
+            )
         g_d = _to_device(self.γs_, device)
         # Streaming: zero-weight padding rows to a chunk multiple, added before the
         # pre-transform so that their weight excludes them everywhere; num_samples keeps
@@ -458,14 +523,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             fm.fit(X, y_, sample_weight_)
             M_map, b_map = fm.linear_map()
             M_d, b_d = _to_device(M_map.astype(dtype), device), _to_device(b_map.astype(dtype), device)
-            # Surface-complexity regulariser. The shipped complexity matrix is the identity
-            # (C_emb=None); a custom feature map with a nontrivial matrix routes through the
-            # whitened-GEVD path (ref _neo_ls_svm.py:116-124).
-            C = np.asarray(fm.complexity_matrix, dtype=dtype)
-            if not np.array_equiv(C, C[0, 0] * np.eye(C.shape[0], dtype=dtype)):
-                C_n = C / (np.mean(np.abs(np.diag(C))) * (n_rows * C.shape[0]))
-                zeros = np.zeros_like(C_n)
-                C_emb = _to_device(np.block([[C_n, zeros], [zeros, C_n]]), device)
+            C_emb = _complexity_embedding(fm, dtype, n_rows, device)
         if route == "streaming":
             result = primal_fit_streaming(
                 X_d,
@@ -484,16 +542,81 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             result = primal_fit(
                 X_d, M_d, b_d, y_d, s_d, g_d, C_emb, is_classifier=is_classifier, num_samples=n_rows
             )
+        return {**self._keep_primal_state(result, M_d, b_d, C_emb, n_rows, num_features), **pt}
+
+    def _keep_primal_state(
+        self,
+        result: dict[str, torch.Tensor],
+        M_d: torch.Tensor,
+        b_d: torch.Tensor,
+        C_emb: torch.Tensor | None,
+        n_rows: int,
+        num_features: int,
+    ) -> dict[str, torch.Tensor]:
+        """Keep the serving tensors of a primal fit on its device; the result with them."""
         # The GEVD (custom-C) eigenbasis is C-orthonormal: resolvent scale is 1.
         self._inv_c0 = 1.0 if C_emb is not None else float(n_rows * (num_features + 1))
         self._device_cache = {
             "beta_emb": result["beta_emb"],
-            "Qs": result["Qs"],
+            # Row-major, as a restored model uploads it: eigh's column-major Qs would take
+            # another BLAS path in serving and round the variance otherwise.
+            "Qs": result["Qs"].contiguous(),
             "lam": result["lam"],
             "M_map": M_d,
             "b_map": b_d,
         }
-        return {**result, "M_map": M_d, "b_map": b_d, **pt}
+        return {**result, "M_map": M_d, "b_map": b_d}
+
+    def _fit_mesh(
+        self,
+        X: "npt.NDArray | torch.Tensor",
+        y_: npt.NDArray,
+        sample_weight_: npt.NDArray,
+        *,
+        is_classifier: bool,
+        device: torch.device,
+        use_device_pt: bool,
+        stream: bool,
+    ) -> dict[str, torch.Tensor]:
+        """The mesh route: every rank passes all rows, the solver shards them over the
+        mesh's ``data`` axis, streaming each rank's rows when its share of the working set
+        is above the threshold, and every rank keeps the whole result on ``device``."""
+        fm = self.primal_feature_map_
+        n_rows = X.shape[0]
+        num_features = int(getattr(fm, "num_features", 512))
+        dtype = y_.dtype
+        if use_device_pt:
+            generator = torch.Generator(device=device)  # drawn from on the first rank only
+            generator.manual_seed(self._device_pt_seed())
+            affine = fm.affine_feature_map
+            result = sharded_primal_fit_device_pt(
+                self.mesh_,
+                X,
+                y_,
+                sample_weight_,
+                generator,
+                self.γs_,
+                is_classifier=is_classifier,
+                num_bins=2 if is_classifier else DEVICE_PRETRANSFORM_BINS,
+                num_features=num_features,
+                edge_sample_size=int(getattr(affine, "edge_sample_size", 384)),
+                edge_search_multiplier=int(getattr(affine, "edge_search_multiplier", 4)),
+                rank_threshold=float(getattr(affine, "rank_threshold", 2e-2)),
+                orthogonal=isinstance(fm, OrthogonalRandomFourierFeatures),
+                stream=stream,
+                row_chunk=STREAMING_ROW_CHUNK,
+            )
+            return self._keep_primal_state(result, result["pt_M"], result["pt_b"], None, n_rows, num_features)
+        # Every rank runs the host pre-transform: NumPy, the same bits on each.
+        fm.fit(X, y_, sample_weight_)
+        M_map, b_map = fm.linear_map()
+        M_d, b_d = _to_device(M_map.astype(dtype), device), _to_device(b_map.astype(dtype), device)
+        C_emb = _complexity_embedding(fm, dtype, n_rows, device)
+        sharded_fit = sharded_primal_fit_streaming if stream else sharded_primal_fit
+        result = sharded_fit(
+            self.mesh_, X, M_d, b_d, y_, sample_weight_, self.γs_, C_emb, is_classifier=is_classifier
+        )
+        return self._keep_primal_state(result, M_d, b_d, C_emb, n_rows, num_features)
 
     def _device_pt_seed(self) -> int:
         """The generator seed of the device pre-transform, from ``random_state``."""
@@ -630,6 +753,9 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         state = dict(self.__dict__)
         state.pop("_device_cache", None)
         state.pop("_calibration_ctx", None)
+        # A mesh is a resource of the process group: the model restores on one device.
+        state.pop("mesh_", None)
+        state["mesh"] = None
         return state
 
     # ------------------------------------------------------------- core predictors

@@ -20,6 +20,7 @@ a switch, decides whether the streaming solver runs the CUDA kernels
 (``ops/cuda/gram.py``, ``ops/cuda/sweep.py``) or their plain PyTorch versions.
 """
 
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -150,14 +151,26 @@ def _regularised_gram(
     return B + gamma_opt * C_emb
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _loo_score(
-    y: torch.Tensor, s: torch.Tensor, e_raw: torch.Tensor, is_classifier: bool
+    y: torch.Tensor,
+    s: torch.Tensor,
+    e_raw: torch.Tensor,
+    is_classifier: bool,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> torch.Tensor:
-    """LOO accuracy (classifier) or LOO R² (regressor) from pre-clip residuals."""
+    """LOO accuracy (classifier) or LOO R² (regressor) from pre-clip residuals.
+
+    ``row_sum`` completes each weighted moment over rows held elsewhere (see
+    :func:`primal_fit`); padding rows carry s = 0 and move no moment.
+    """
     if is_classifier:
-        return s @ (torch.sign(y + e_raw) == y).to(y.dtype)
-    y_mean = s @ y
-    return 1.0 - (s @ (e_raw * e_raw)) / (s @ ((y - y_mean) * (y - y_mean)))
+        return row_sum(s @ (torch.sign(y + e_raw) == y).to(y.dtype))
+    y_mean = row_sum(s @ y)
+    return 1.0 - row_sum(s @ (e_raw * e_raw)) / row_sum(s @ ((y - y_mean) * (y - y_mean)))
 
 
 def primal_fit(
@@ -172,6 +185,7 @@ def primal_fit(
     is_classifier: bool,
     gamma_chunk: int = 128,
     num_samples: int | None = None,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> dict[str, torch.Tensor]:
     """Fit the primal LS-SVM in memory and tune γ by closed-form leave-one-out error.
 
@@ -183,10 +197,15 @@ def primal_fit(
     pad X with zero-weight rows without perturbing the solution. ``C_emb`` is the
     *normalised* complexity matrix in the real embedding (2M×2M); None is the shipped
     scaled identity.
+
+    ``row_sum`` is applied to every sum over rows (the weight total, the Gram, WᵀS²y,
+    the sweep's sums and the LOO score's moments): the identity here, and a sum across
+    ranks when X holds one rank's rows (``parallel/mesh.py::sharded_primal_fit``). The
+    per-row outputs are then this rank's rows.
     """
     n = X.shape[0] if num_samples is None else num_samples
     dtype, device = X.dtype, X.device
-    s = sample_weight / torch.sum(sample_weight)
+    s = sample_weight / row_sum(torch.sum(sample_weight))
     s2 = s * s
     W = _features_real_pair(X, M_map, b_map)
     M2 = W.shape[1]
@@ -195,11 +214,11 @@ def primal_fit(
     # the shipped identity complexity matrix; φ.size = n·M).
     inv_c0 = _inv_c0_scale(n, M, dtype, device)
     inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
-    B = _embedding_gram(W, s2)
+    B = row_sum(_embedding_gram(W, s2))
     sign = _sign_vector(M, dtype, device)
     lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
     Gu = W @ Qs  # n×2M: rows are zᵢᵀQ.
-    b_vec = W.T @ (s2 * y)  # Wᵀ S² y
+    b_vec = row_sum(W.T @ (s2 * y))  # Wᵀ S² y
     k = Qs.T @ b_vec  # QᵀZᵀS²y
     Gu2 = Gu * Gu
     Gu_k = Gu * k[None, :]
@@ -215,8 +234,7 @@ def primal_fit(
         loo_err_c, obj_c = _sweep_objective(e, s, is_classifier)
         loo_err_parts.append(loo_err_c)
         obj_parts.append(obj_c)
-    loo_errors_gs = torch.cat(loo_err_parts)
-    objective = torch.cat(obj_parts)
+    loo_errors_gs, objective = row_sum(torch.stack([torch.cat(loo_err_parts), torch.cat(obj_parts)]))
     optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
     gamma_opt = gammas[optimum]
 
@@ -227,7 +245,7 @@ def primal_fit(
     lev_opt = s2 * sigma2
     e_raw = (phi_beta_opt - y) / (1.0 - lev_opt)
     e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
-    loo_score = _loo_score(y, s, e_raw, is_classifier)
+    loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
 
     # Re-solve (γC + A)β̂ = φᴴS²y at the optimum via Cholesky for accuracy (ref :177-178),
     # in embedding space: (γ·C + B) β̂_emb = Zᵀ S² y.
@@ -315,6 +333,7 @@ def primal_fit_streaming(
     is_classifier: bool,
     row_chunk: int = 16384,
     num_samples: int | None = None,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> dict[str, torch.Tensor]:
     """Streaming variant of :func:`primal_fit`: O(row_chunk·2M) device memory.
 
@@ -325,6 +344,10 @@ def primal_fit_streaming(
     package routes it) and K2 (``fused_loo_sweep``); on CPU tensors both run their plain
     PyTorch versions. Callers pad rows to a multiple of ``row_chunk`` with zero sample
     weights and pass the true row count via ``num_samples``.
+
+    ``row_sum`` is :func:`primal_fit`'s hook, applied to the weight total, the augmented
+    Gram, the γ-sweep's sums and the LOO score's moments
+    (``parallel/mesh.py::sharded_primal_fit_streaming``).
     """
     n_pad = X.shape[0]
     if n_pad % row_chunk:
@@ -335,7 +358,7 @@ def primal_fit_streaming(
     D = M_map.shape[1]
     M = D + 1
     M2 = 2 * M
-    s = sample_weight / torch.sum(sample_weight)
+    s = sample_weight / row_sum(torch.sum(sample_weight))
     s2 = s * s
     sign = _sign_vector(M, dtype, device)
 
@@ -345,7 +368,7 @@ def primal_fit_streaming(
         G_aug = fused_augmented_gram(X, M_map, b_map, s2, y)
     else:
         G_aug = gram_plain(X, M_map, b_map, s2, y, chunk_rows=row_chunk)
-    G, b_vec = w_basis_from_augmented(G_aug, D)
+    G, b_vec = w_basis_from_augmented(row_sum(G_aug), D)
     B = embed_from_gram_blocks(G, M)
 
     inv_c0 = _inv_c0_scale(n, M, dtype, device)
@@ -355,7 +378,7 @@ def primal_fit_streaming(
 
     # Pass 2: γ-sweep objective reduction over all rows.
     r_all = (1.0 / (gammas[None, :] + lam[:, None])).contiguous()  # 2M × G
-    loo_errors_gs, objective = fused_loo_sweep(
+    loo_errors_gs, objective = row_sum(torch.stack(fused_loo_sweep(
         X,
         M_map,
         b_map,
@@ -367,7 +390,7 @@ def primal_fit_streaming(
         k,
         is_classifier=is_classifier,
         inv_c0=float(n) * M if C_emb is None else 1.0,
-    )
+    )))
     optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
     gamma_opt = gammas[optimum]
 
@@ -396,7 +419,7 @@ def primal_fit_streaming(
     sigma2 = torch.cat(sig2_c)
     residuals = _clip_classifier_residuals(torch.cat(resid_c), y, is_classifier)
     e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
-    loo_score = _loo_score(y, s, e_raw, is_classifier)
+    loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
     loo_sigma2 = sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)
 
     return {

@@ -99,37 +99,45 @@ def _source_key(sources: list[Path]) -> str:
 
 
 def _compile(nvcc: str, sources: list[Path], out_dir: Path) -> Path:
-    """Compile every source in parallel, link them into one library, return its path."""
+    """Compile every source in parallel, link them into one library, return its path.
+
+    The objects and the linked library go to a directory of this build's own, so that
+    processes that build at the same moment (the ranks of a multi-GPU fit, started
+    together) never link each other's half-written objects; the finished library then
+    replaces ``out_dir/<lib>`` atomically.
+    """
     global build_log
-    procs = []
-    for src in sources:
-        obj = out_dir / f"{src.stem}.o"
-        cmd = [nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    logs, failed = [], []
-    for src, _, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out.decode(errors='replace')}")
-        if proc.returncode != 0:
-            failed.append(src.name)
-    build_log = "\n".join(logs)
-    if failed:
-        msg = f"nvcc failed on {failed}:\n{build_log}"
-        raise RuntimeError(msg)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    link = subprocess.run(
-        [nvcc, "-shared", *[str(obj) for _, obj, _ in procs], "-o", tmp],
-        capture_output=True,
-        check=False,
-    )
-    if link.returncode != 0:
-        os.unlink(tmp)
-        msg = f"nvcc link failed:\n{link.stderr.decode(errors='replace')}"
-        raise RuntimeError(msg)
-    lib_path = out_dir / _LIB_NAME
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees the old or the new file
-    return lib_path
+    work = Path(tempfile.mkdtemp(prefix="build-", dir=out_dir))
+    try:
+        procs = []
+        for src in sources:
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out.decode(errors='replace')}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        build_log = "\n".join(logs)
+        if failed:
+            msg = f"nvcc failed on {failed}:\n{build_log}"
+            raise RuntimeError(msg)
+        tmp = work / _LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", *[str(obj) for _, obj, _ in procs], "-o", str(tmp)],
+            capture_output=True,
+            check=False,
+        )
+        if link.returncode != 0:
+            msg = f"nvcc link failed:\n{link.stderr.decode(errors='replace')}"
+            raise RuntimeError(msg)
+        lib_path = out_dir / _LIB_NAME
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees the old or the new file
+        return lib_path
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,0 +1,411 @@
+"""Multi-GPU fits: rows sharded over the ``data`` axis of a ("data", "feature") mesh.
+
+PyTorch port of ``neo_ls_svm_tpu.parallel.mesh``. The JAX package runs one process over
+many devices and lets GSPMD (the in-memory fit) or ``shard_map`` (the streaming fit)
+place its collectives. Here one process drives one GPU (``torchrun``), every process runs
+the same code on its own rows, and every sum across ranks is an explicit call of
+``parallel/collectives.py`` on the mesh's process groups:
+
+* rows of X (hence of the feature matrix W) are split into ``num_data`` contiguous blocks,
+  the blocks JAX's ``PartitionSpec("data")`` gives its shards; each rank stages only its
+  own block, and the ranks of one ``feature`` group hold the same block;
+* the weight total, the (2M+1)² augmented Gram, the γ-grid objective and the LOO score's
+  moments are summed over ``data``;
+* the 2M×2M eigh, γ selection and Cholesky re-solve are repeated on every rank;
+* per-row outputs (LOO residuals, leverage, std) come back whole on every rank.
+
+The streaming fit runs K1 (``fused_augmented_gram``) and K2 (``fused_loo_sweep``) on each
+rank's rows, as the single-GPU streaming fit does on all of them. With ``num_feature > 1``
+it splits the three O(n·(2M)²) contractions over the ``feature`` axis instead, in plain
+torch: each rank owns a block of Gram or eigenvector columns, the Gram's column blocks are
+gathered before the eigh, and the sweep's num/lev partials are summed over ``feature``
+before the nonlinear LOO step (the fused kernels hide those partials).
+
+Every rank passes the full X (a host array, or a tensor on its own device) and receives
+the full result: this is the contract of the JAX package's multi-process fit.
+"""
+
+import math
+from functools import partial
+from typing import Any
+
+import numpy as np
+import numpy.typing as npt
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from neo_ls_svm_torch.models.primal import (
+    PER_ROW_KEYS,
+    _clip_classifier_residuals,
+    _eigendecompose,
+    _features_real_pair,
+    _inv_c0_scale,
+    _loo_score,
+    _regularised_gram,
+    _sign_vector,
+    _sweep_objective,
+    embed_from_gram_blocks,
+    primal_fit,
+    primal_fit_streaming,
+)
+from neo_ls_svm_torch.ops.pretransform_device import device_pre_transform
+from neo_ls_svm_torch.parallel import collectives
+from neo_ls_svm_torch.utils.device import require_device, to_device, torch_dtype
+
+AXES = ("data", "feature")
+
+Operand = npt.NDArray | torch.Tensor  # a host array, or a tensor on the rank's device
+
+# The meshes of the current process group, by shape and device type. Every
+# init_device_mesh call makes new process groups (NCCL communicators and their device
+# buffers) that are never released, so a refit must not build its mesh again.
+_MESHES: dict[tuple[Any, int, int, str], DeviceMesh] = {}
+
+
+def make_mesh(num_data: int | None = None, num_feature: int = 1, device_type: str = "cuda") -> DeviceMesh:
+    """A ("data", "feature") mesh over every rank of the initialised process group.
+
+    Rank r sits at data index r // num_feature and feature index r % num_feature (row
+    major), so the ranks of one ``feature`` group are neighbours, as on one host. The
+    mesh's ``device_type`` names the device each rank computes on: its current CUDA
+    device, or the CPU when the caller asks for ``"cpu"``. A mesh is built once per
+    process group, shape and device type, and returned again on later calls.
+    """
+    if not dist.is_available() or not dist.is_initialized():
+        msg = (
+            "make_mesh needs an initialised process group: call "
+            "neo_ls_svm_torch.parallel.distributed.initialize_distributed (or "
+            "torch.distributed.init_process_group) first."
+        )
+        raise RuntimeError(msg)
+    world = dist.get_world_size()
+    if num_data is None:
+        num_data = world // num_feature
+    if num_data < 1 or num_feature < 1 or num_data * num_feature != world:
+        msg = f"a ({num_data}, {num_feature}) mesh must hold the world's {world} ranks exactly."
+        raise ValueError(msg)
+    if device_type == "cuda" and not torch.cuda.is_available():
+        msg = "make_mesh(device_type='cuda') needs a CUDA device; pass device_type='cpu' for the CPU."
+        raise RuntimeError(msg)
+    world_group = dist.group.WORLD
+    for stale in [key for key in _MESHES if key[0] is not world_group]:
+        del _MESHES[stale]  # built on a process group that has since been destroyed
+    key = (world_group, num_data, num_feature, device_type)
+    if key not in _MESHES:
+        _MESHES[key] = init_device_mesh(device_type, (num_data, num_feature), mesh_dim_names=AXES)
+    return _MESHES[key]
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank computes on: its current CUDA device, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def required_padding(n: int, num_data: int) -> int:
+    """Rows of zero-weight padding needed to align ``n`` to the data axis."""
+    return (math.ceil(n / num_data) * num_data) - n
+
+
+def streaming_row_chunk(n: int, num_data: int, row_chunk: int = 16384) -> int:
+    """The per-rank chunk the sharded streaming fit will actually use (its rows are
+    padded to ``num_data * streaming_row_chunk(...)``)."""
+    return min(row_chunk, math.ceil(n / num_data))
+
+
+def _stage_rows(mesh: DeviceMesh, arr: Operand, mult: int, device: torch.device) -> torch.Tensor:
+    """This rank's block of ``arr``'s rows, zero-padded as if ``arr`` were first padded to
+    a multiple of ``mult``: the block at this rank's data index. A host array crosses to
+    the device block by block; a tensor (on ``device``) is sliced and padded there."""
+    n = arr.shape[0]
+    per = -(-n // mult) * mult // axis_size(mesh, "data")
+    lo = mesh.get_local_rank("data") * per
+    hi = min(lo + per, n)
+    if isinstance(arr, torch.Tensor):
+        require_device(arr, device, "X")
+        block = arr[lo:hi]
+        if block.shape[0] < per:
+            block = torch.cat([block, block.new_zeros((per - block.shape[0], *block.shape[1:]))])
+        return block.contiguous()
+    block = np.asarray(arr[lo:hi])
+    if block.shape[0] < per:
+        block = np.concatenate([block, np.zeros((per - block.shape[0], *block.shape[1:]), block.dtype)])
+    return to_device(block, device)
+
+
+def _stage_replicated(arr: Operand | None, device: torch.device) -> torch.Tensor | None:
+    if arr is None:
+        return None
+    if isinstance(arr, torch.Tensor):
+        require_device(arr, device, "operand")
+        return arr
+    return to_device(np.asarray(arr), device)
+
+
+def _whole_rows(result: dict[str, torch.Tensor], data: Any, n: int) -> dict[str, torch.Tensor]:
+    """Each per-row output gathered over the data axis and trimmed to the true rows."""
+    return {
+        k: (collectives.gather_rows(v, data)[:n] if k in PER_ROW_KEYS else v) for k, v in result.items()
+    }
+
+
+def sharded_primal_fit(
+    mesh: DeviceMesh,
+    X: Operand,
+    M_map: Operand,
+    b_map: Operand,
+    y: Operand,
+    sample_weight: Operand,
+    gammas: Operand,
+    C_emb: Operand | None = None,
+    *,
+    is_classifier: bool,
+    gamma_chunk: int = 128,
+    num_samples: int | None = None,
+) -> dict[str, torch.Tensor]:
+    """``primal_fit`` on this rank's rows, its sums over rows completed over ``data``.
+
+    Rows are zero-weight-padded to a multiple of the data axis (padded rows carry s = 0,
+    and the c₀ normalisation uses the true row count ``num_samples``, default n). The
+    objective every rank takes its argmin of is one ``all_reduce`` result, the same bits
+    on every rank, so every rank picks the same γ.
+    """
+    n = num_samples if num_samples is not None else X.shape[0]
+    num_data = axis_size(mesh, "data")
+    device = mesh_device(mesh)
+    data = mesh.get_group("data")
+    X_l, y_l, s_l = (_stage_rows(mesh, a, num_data, device) for a in (X, y, sample_weight))
+    M_d, b_d, g_d, C_d = (_stage_replicated(a, device) for a in (M_map, b_map, gammas, C_emb))
+    result = primal_fit(
+        X_l,
+        M_d,
+        b_d,
+        y_l,
+        s_l,
+        g_d,
+        C_d,
+        is_classifier=is_classifier,
+        gamma_chunk=gamma_chunk,
+        num_samples=n,
+        row_sum=partial(collectives.sum_over, group=data),
+    )
+    return _whole_rows(result, data, n)
+
+
+def sharded_primal_fit_streaming(
+    mesh: DeviceMesh,
+    X: Operand,
+    M_map: Operand,
+    b_map: Operand,
+    y: Operand,
+    sample_weight: Operand,
+    gammas: Operand,
+    C_emb: Operand | None = None,
+    *,
+    is_classifier: bool,
+    row_chunk: int = 16384,
+    num_samples: int | None = None,
+) -> dict[str, torch.Tensor]:
+    """Row-sharded *streaming* primal fit: O(row_chunk·2M) memory per rank.
+
+    Rows are zero-weight-padded to a multiple of ``num_data * row_chunk``. With
+    ``num_feature == 1`` each rank runs ``primal_fit_streaming`` on its own rows, its sums
+    over rows completed over ``data``: pass 1 is K1 on the rank's rows (``C_emb`` is None;
+    a custom C takes ``gram_plain``), pass 2 is K2 on them; on CPU tensors both run their
+    plain versions. With ``num_feature > 1`` the three passes run in plain torch on
+    column blocks, with two sums over ``feature`` per row chunk in passes 2 and 3. The
+    per-row outputs come back whole.
+    """
+    n = num_samples if num_samples is not None else X.shape[0]
+    num_data = axis_size(mesh, "data")
+    data = mesh.get_group("data")
+    device = mesh_device(mesh)
+    row_chunk = streaming_row_chunk(n, num_data, row_chunk)
+    X_l, y_l, w_l = (_stage_rows(mesh, a, num_data * row_chunk, device) for a in (X, y, sample_weight))
+    M_d, b_d, g_d, C_d = (_stage_replicated(a, device) for a in (M_map, b_map, gammas, C_emb))
+    row_sum = partial(collectives.sum_over, group=data)
+    num_feature = axis_size(mesh, "feature")
+    if num_feature == 1:
+        result = primal_fit_streaming(
+            X_l,
+            M_d,
+            b_d,
+            y_l,
+            w_l,
+            g_d,
+            C_d,
+            is_classifier=is_classifier,
+            row_chunk=row_chunk,
+            num_samples=n,
+            row_sum=row_sum,
+        )
+        return _whole_rows(result, data, n)
+
+    # The feature axis: each rank contracts every row chunk against its block of Gram or
+    # eigenvector columns. One column gather reassembles the Gram before the eigh, and
+    # the sweep's num/lev partials are summed over "feature" before the nonlinear LOO step
+    # (the fused kernels hide those partials, so neither runs here, as in JAX).
+    feature = mesh.get_group("feature")
+    f_idx = mesh.get_local_rank("feature")
+    feature_sum = partial(collectives.sum_over, group=feature)
+    dtype = X_l.dtype
+    M = M_d.shape[1] + 1
+    M2 = 2 * M
+    sign = _sign_vector(M, dtype, device)
+    s_l = w_l / row_sum(torch.sum(w_l))
+    s2_l = s_l * s_l
+    chunks = [slice(start, start + row_chunk) for start in range(0, X_l.shape[0], row_chunk)]
+
+    def column_block(a: torch.Tensor, width: int) -> torch.Tensor:
+        """This feature rank's block of ``a``'s columns, zero-padded to ``width`` first
+        (padded columns contribute exactly nothing to any contraction)."""
+        block = width // num_feature
+        padded = torch.nn.functional.pad(a, (0, width - a.shape[1]))
+        return padded[:, f_idx * block : (f_idx + 1) * block]
+
+    # Pass 1: the row chunk against this rank's block of Y = [W | y]'s columns.
+    gram_cols = -(-(M2 + 1) // num_feature) * num_feature
+    G_cols = torch.zeros((M2 + 1, gram_cols // num_feature), dtype=dtype, device=device)
+    for rows in chunks:
+        Y_b = torch.cat([_features_real_pair(X_l[rows], M_d, b_d), y_l[rows, None]], dim=1)
+        G_cols += (Y_b.T * s2_l[None, rows]) @ column_block(Y_b, gram_cols)
+    G_aug = collectives.gather_columns(row_sum(G_cols), feature)[:, : M2 + 1]
+    G, b_vec = G_aug[:M2, :M2], G_aug[:M2, M2]
+    B = embed_from_gram_blocks(G, M)
+    inv_c0 = _inv_c0_scale(n, M, dtype, device)
+    inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
+    lam, Qs, inv_c0 = _eigendecompose(B, C_d, inv_c0, sign)
+    k = Qs.T @ b_vec
+    eig_cols = -(-M2 // num_feature) * num_feature
+    Qs_loc = column_block(Qs, eig_cols)
+    k_loc = column_block(k[None, :], eig_cols)[0]
+    r_loc = column_block((1.0 / (g_d[None, :] + lam[:, None])).T, eig_cols).T  # block × G
+
+    # Pass 2: the γ-sweep, num and lev summed over "feature" in every row chunk.
+    loo_err_l = torch.zeros(g_d.shape[0], dtype=dtype, device=device)
+    obj_l = torch.zeros_like(loo_err_l)
+    for rows in chunks:
+        Gu_b = _features_real_pair(X_l[rows], M_d, b_d) @ Qs_loc
+        num = feature_sum(inv_c0 * ((Gu_b * k_loc[None, :]) @ r_loc))
+        lev = feature_sum(inv_c0 * s2_l[rows, None] * ((Gu_b * Gu_b) @ r_loc))
+        e = _clip_classifier_residuals((num - y_l[rows, None]) / (1.0 - lev), y_l[rows], is_classifier)
+        loo_err_b, obj_b = _sweep_objective(e, s_l[rows], is_classifier)
+        loo_err_l += loo_err_b
+        obj_l += obj_b
+    loo_errors_gs, objective = row_sum(torch.stack([loo_err_l, obj_l]))
+    optimum = torch.argmin(objective)
+    gamma_opt = g_d[optimum]
+    L = torch.linalg.cholesky(_regularised_gram(B, C_d, gamma_opt, inv_c0_id))
+    beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
+
+    # Pass 3: per-row statistics at the optimum, num and σ² summed over "feature".
+    r_opt = 1.0 / (gamma_opt + lam)
+    r_opt_loc, kr_opt_loc = (column_block(v[None, :], eig_cols)[0] for v in (r_opt, k * r_opt))
+    beta_j = sign * beta_emb
+    e_raw_c, sig2_c, resid_c = [], [], []
+    for rows in chunks:
+        W_b = _features_real_pair(X_l[rows], M_d, b_d)
+        Gu_b = W_b @ Qs_loc
+        num = feature_sum(inv_c0 * (Gu_b @ kr_opt_loc))
+        sig2 = feature_sum(inv_c0 * ((Gu_b * Gu_b) @ r_opt_loc))
+        e_raw_c.append((num - y_l[rows]) / (1.0 - s2_l[rows] * sig2))
+        sig2_c.append(sig2)
+        resid_c.append(W_b @ beta_j - y_l[rows])
+    e_raw, sigma2 = torch.cat(e_raw_c), torch.cat(sig2_c)
+    lev_opt = s2_l * sigma2
+    e_clipped = _clip_classifier_residuals(e_raw, y_l, is_classifier)
+    result = {
+        "beta_emb": beta_emb,
+        "gamma": gamma_opt,
+        "optimum_index": optimum,
+        "lam": lam,
+        "Qs": Qs,
+        "loo_errors_gammas": loo_errors_gs,
+        "loo_residuals": e_clipped,
+        "loo_yhat": y_l + e_clipped,
+        "loo_leverage": lev_opt,
+        "loo_error": loo_errors_gs[optimum],
+        "loo_score": _loo_score(y_l, s_l, e_raw, is_classifier, row_sum),
+        "loo_std": torch.sqrt(sigma2 + (s_l * sigma2) ** 2 / (1.0 - lev_opt)),
+        "residuals": _clip_classifier_residuals(torch.cat(resid_c), y_l, is_classifier),
+    }
+    return _whole_rows(result, data, n)
+
+
+_PT_KEYS = ("M", "b", "pt_shift", "pt_scale", "pt_A", "pt_Z", "pt_folded")
+
+
+def sharded_primal_fit_device_pt(
+    mesh: DeviceMesh,
+    X: Operand,
+    y: Operand,
+    sample_weight: Operand,
+    generator: torch.Generator | None,
+    gammas: Operand,
+    *,
+    is_classifier: bool,
+    num_bins: int,
+    num_features: int,
+    edge_sample_size: int,
+    edge_search_multiplier: int,
+    rank_threshold: float,
+    orthogonal: bool,
+    stream: bool,
+    row_chunk: int = 16384,
+) -> dict[str, torch.Tensor]:
+    """Mesh fit with the on-device pre-transform.
+
+    The first rank of the world runs ``device_pre_transform`` on all n rows with
+    ``generator`` (the other ranks pass None), exactly as a single-GPU fit with the same
+    seed does, and broadcasts the solver operands ``M``, ``b`` and the fitted ``pt_*``
+    state; then the sharded solver runs on them. The pre-transform is computed on one
+    rank, not row-sharded: that rank holds all of X on its device (the JAX package runs
+    it as one GSPMD program over the row shards). Returns the solver result plus
+    ``pt_M``, ``pt_b`` and the ``pt_*`` state, as the single-GPU route does.
+    """
+    device = mesh_device(mesh)
+    d = X.shape[1]
+    dtype = X.dtype if isinstance(X, torch.Tensor) else torch_dtype(X.dtype)
+    if dist.get_rank() == 0:
+        X_d = X if isinstance(X, torch.Tensor) else to_device(X, device)
+        pt = device_pre_transform(
+            X_d,
+            _stage_replicated(y, device),
+            _stage_replicated(sample_weight, device),
+            generator,
+            num_bins=num_bins,
+            num_features=num_features,
+            edge_sample_size=edge_sample_size,
+            edge_search_multiplier=edge_search_multiplier,
+            rank_threshold=rank_threshold,
+            is_classifier=is_classifier,
+            orthogonal=orthogonal,
+        )
+        del X_d
+    else:
+        width = num_bins * d
+        shapes = {
+            "M": (d, num_features),
+            "b": (1, num_features),
+            "pt_shift": (1, d),
+            "pt_scale": (1, d),
+            "pt_A": (d, width),
+            "pt_Z": (width, num_features),
+            "pt_folded": (d, num_features),
+        }
+        pt = {key: torch.empty(shapes[key], dtype=dtype, device=device) for key in _PT_KEYS}
+    pt = {key: collectives.broadcast_from_first(pt[key], None) for key in _PT_KEYS}
+    operands = (mesh, X, pt["M"], pt["b"], y, sample_weight, gammas, None)
+    if stream:
+        result = sharded_primal_fit_streaming(
+            *operands, is_classifier=is_classifier, row_chunk=row_chunk, num_samples=X.shape[0]
+        )
+    else:
+        result = sharded_primal_fit(*operands, is_classifier=is_classifier, num_samples=X.shape[0])
+    return {**result, "pt_M": pt["M"], "pt_b": pt["b"], **{k: pt[k] for k in _PT_KEYS[2:]}}

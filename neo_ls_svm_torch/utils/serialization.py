@@ -27,7 +27,8 @@ from neo_ls_svm_torch.utils.base import BaseEstimator
 _CONFORMAL_TARGETS = ("Δŷ", "Δŷ/ŷ")
 # Host copies of the solver state that carry no trailing underscore.
 _PRIVATE_STATE = ("_M_map", "_b_map", "_eig_Qs", "_eig_lam", "_inv_c0", "_chol")
-# Carried as components or under "conformal"/"meta", or not model state at all (device_).
+# Carried as components or under "conformal"/"meta", or not model state at all (device_,
+# mesh_: resources of the process).
 _SKIPPED_ATTRS = frozenset(
     {
         "conformal_l1_",
@@ -37,6 +38,7 @@ _SKIPPED_ATTRS = frozenset(
         "predict_proba_calibrator_",
         "y_dtype_",
         "device_",
+        "mesh_",
     }
 )
 _COMPONENTS = ("primal_feature_map_", "dual_feature_map_", "predict_proba_calibrator_")
@@ -134,8 +136,10 @@ def model_to_state_dict(model: Any) -> dict[str, Any]:
     # The calibration state a fit defers must land in vars(model) first.
     model._materialize_calibrator()
     model._materialize_conformal_split()
-    # Resources of the process (the device, a mesh) are not part of the persisted state.
+    # Resources of the process (the device, a mesh) are not part of the persisted state:
+    # a mesh-fitted model is stored with mesh=None and restores on one device.
     all_params = {k: v for k, v in model.get_params(deep=False).items() if k != "device"}
+    all_params["mesh"] = None
     simple_params = {
         k: (v if _storable(v) else None) for k, v in all_params.items() if not isinstance(v, BaseEstimator)
     }

@@ -116,9 +116,12 @@ def test_fit_without_cpu_request_raises_when_cuda_is_unavailable() -> None:
 
 
 def test_fit_raises_for_what_is_not_ported() -> None:
+    """Every option of the JAX estimator is ported (``mesh=`` last); a value that neither
+    package takes raises ValueError naming the option."""
     X, y, _ = _data("regression")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_est.NeoLSSVM(device="cpu", mesh="auto").fit(X, y)
+    for option, value in (("mesh", "all-devices"), ("pre_transform", "gpu"), ("transfer", "float16")):
+        with pytest.raises(ValueError, match=option):
+            t_est.NeoLSSVM(device="cpu", **{option: value}).fit(X, y)
 
 
 def test_fit_takes_a_tensor_on_the_models_device() -> None:

@@ -1,6 +1,6 @@
 """The port stands alone: neither ``neo_ls_svm_torch`` nor ``chip_smoke.py`` imports JAX
 or the JAX package, at import time or anywhere in their source. The modules of the
-calibration and persistence layer import no scikit-learn either."""
+calibration, persistence and multi-GPU layers import no scikit-learn either."""
 
 import ast
 import subprocess
@@ -16,8 +16,8 @@ SOURCES = sorted(
 ) + ["chip_smoke.py"]
 
 
-# The calibration and persistence layer: no scikit-learn (the machine with the card
-# promises none), beside no JAX.
+# The calibration, persistence and multi-GPU layers: no scikit-learn (the machine with
+# the card promises none), beside no JAX.
 NO_SKLEARN = [
     "neo_ls_svm_torch/native/__init__.py",
     "neo_ls_svm_torch/models/isotonic.py",
@@ -26,6 +26,9 @@ NO_SKLEARN = [
     "neo_ls_svm_torch/models/estimator.py",
     "neo_ls_svm_torch/utils/serialization.py",
     "neo_ls_svm_torch/utils/device.py",
+    "neo_ls_svm_torch/parallel/collectives.py",
+    "neo_ls_svm_torch/parallel/mesh.py",
+    "neo_ls_svm_torch/parallel/distributed.py",
     "chip_smoke.py",
 ]
 
@@ -71,6 +74,9 @@ def test_importing_the_port_loads_no_jax() -> None:
         "neo_ls_svm_torch.models.cqr",
         "neo_ls_svm_torch.models.conformal",
         "neo_ls_svm_torch.models.estimator",
+        "neo_ls_svm_torch.parallel.collectives",
+        "neo_ls_svm_torch.parallel.mesh",
+        "neo_ls_svm_torch.parallel.distributed",
     ]
     code = (
         "import importlib, sys\n"

@@ -61,6 +61,19 @@ def _fitted(task: str, route: str):
     return _FITTED[task, route]
 
 
+def test_round_trip_at_the_default_width_predicts_std_bit_for_bit() -> None:
+    """With the default 512 features too: the fitted model serves from the same row-major
+    eigenbasis a restored one uploads, so σ comes out of the same products."""
+    X, y, X_test = _data("regression", "primal")
+    model = t_est.NeoLSSVM(device="cpu").fit(X, y)
+    want = model.predict_std(X_test)
+    for restored in (
+        t_est.NeoLSSVM.from_state_dict(model.to_state_dict(), device="cpu"),
+        pickle.loads(pickle.dumps(model)),
+    ):
+        np.testing.assert_array_equal(restored.predict_std(X_test), want)
+
+
 @pytest.mark.parametrize("how", ["state_dict", "pickle"])
 @pytest.mark.parametrize("route", sorted(SIZES))
 @pytest.mark.parametrize("task", ["regression", "classification"])
