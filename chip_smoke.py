@@ -12,10 +12,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 3. ``sweep``: kernel K2 on the same rows, with Qs, λ and k from a real eigendecomposition
    of that Gram and r_all over the 1024-point γ grid, for a regressor and a classifier
    (f32 vs f64 plain: max relative error ≤ 1e-4 and the kernel's argmin within 1e-5 of
-   the plain minimum; f64 vs f64: ≤ 1e-10), with times.
+   the plain minimum; f64 vs f64: ≤ 1e-10), with times. K2's one-pass path
+   (``precision="fast"``) on the same tensors, timed beside the 3×TF32 path: LOO error
+   within 2e-4 relative of f64, a regressor's objective within 1e-4 (or, where a torch
+   emulation of the kernel's rounding on the same inputs is itself further from f64,
+   within 2× the emulation's distance: ``check_sweep_fast``), the f64 objective at its
+   argmin within 1e-3 of the minimum, and at least 10× the 3×TF32 path's error.
    ``ragged``: both kernels at shapes that are multiples of nothing, and at D = 1800, which
    takes the f64 sweep's smaller row groups and shows that the f32 sweep has no
-   shared-memory limit on D, under the same tolerances.
+   shared-memory limit on D, under the same tolerances; the one-pass path at the f32
+   shapes, within 2e-4 or within 2× a torch emulation of its own rounding.
 4. ``parity_small``: a small float64 streaming fit on the card (both kernels) against the
    same fit with ``device="cpu"`` (plain versions): γ equal, LOO arrays at rtol 1e-6.
 5. ``fit_1m``: the main path — the default ``NeoLSSVM().fit`` on 1,048,576 × 32 float32
@@ -33,6 +39,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
    solve, the pull of the result), and one whole fit under torch.profiler for the device's
    idle share. ``fit_1m_host``: the same data with ``pre_transform="host"``, LOO R² within
    0.01 of 0.7437, with the host pre-transform's seconds.
+   ``fast``: the default 1M fit under ``precision="fast"`` (same ``random_state``): the
+   device pre-transform, K1 once on the 3×TF32 path and K2 once on the one-pass path; γ
+   near-optimal under the "high" fit's LOO error (rel 1e-3) and LOO R² within 0.01 of it;
+   that K2 call held to f64 on the fit's own tensors under the one-pass limits (those of
+   ``sweep``) and timed; a repeat fast fit under torch.profiler (device time by kernel,
+   idle share).
+   ``fast_262k``: the in-memory route under "fast" (LOO R² within 0.005), and the TF32
+   scope: every fit and serving call leaves the caller's ``fp32_precision`` as it found
+   it, and a "high" model's ``predict_std`` and ``decision_function`` are bit-equal with
+   the caller's TF32 on and off, also after a pickle and a state-dict round trip.
 6. ``pretransform``: ``device_pre_transform`` alone on those rows, timed; its shift and scale
    against the host ``AffineNormalizer`` on the same equal-mass bins (1e-4 of the scale),
    and the rows in each of the 8 bins.
@@ -71,7 +87,8 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
     passes the sums through the host), sharing ``.npy`` files under ``build/mesh_smoke``.
     (a) ``sharded_primal_fit_streaming`` on a (4, 1) mesh with the 1M fit's own X, M, b and
     y, ``row_chunk`` 16,384: one K1 and one K2 launch on each rank's 262,144 rows, on the
-    3×TF32 path; against ``primal_fit_streaming`` on one GPU, the objective over the γ grid
+    3×TF32 path, and under ``sweep_precision="fast"`` one K2 a rank on the one-pass path (γ
+    near-optimal, LOO R² within 0.01); against ``primal_fit_streaming`` on one GPU, the objective over the γ grid
     within K2's f32 limit (relative 1e-4), the same γ index (or both indices' objectives
     within that limit) and LOO R² within 1e-5; in f64 at 131,072 rows γ equal and β at rtol
     1e-9. (b) The same on (2, 2), the feature axis in plain torch: no launch, LOO R² within
@@ -86,9 +103,13 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
     of them with the checks of (c). Four ranks on one card say nothing of scaling.
     ``python3 chip_smoke.py mesh`` runs the build and this phase only.
 
-Then a ``kernels`` line, the card's name and power limit as ``nvidia-smi`` reports them,
-and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device the script
-exits non-zero and prints no result.
+Then a ``kernels`` line (K1, K2 and K2's one-pass path), the card's name and power limit
+as ``nvidia-smi`` reports them, and the result line ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero and prints no result.
+
+The caller's TF32 is on for the whole run (``fp32_precision = "tf32"``, in every mesh rank
+too): the port's fits and serving entries must scope their own products, and a cuBLAS
+yardstick enters the IEEE scope itself.
 """
 
 import contextlib
@@ -129,6 +150,7 @@ from neo_ls_svm_torch.ops.pretransform_device import (
 )
 from neo_ls_svm_torch.ops.quantizer import hist_quantized_ecdf, sample_bins_quantized_ecdf
 from neo_ls_svm_torch.utils.metrics import r2_score
+from neo_ls_svm_torch.utils.precision import matmul_precision
 from neo_ls_svm_torch.utils.transfer import upload_rows
 
 # The JAX package's LOO R² on the same data (accuracy anchors): the 1M fit with the device
@@ -214,21 +236,23 @@ def emit(record: dict) -> None:
         out.write(line + "\n")
 
 
-def bound(ops: float, nbytes: float, workspace_bytes: float) -> dict:
+def bound(ops: float, nbytes: float, workspace_bytes: float, passes: int = 3) -> dict:
     """The least time for ``ops`` f32 operations of product and ``nbytes`` of HBM traffic.
 
-    ``bound_ms`` is the f32 path's: its products run in 3×TF32, three tensor-core passes
-    each, so ops at 495/3 TFLOP/s, and its bytes include the row chunks' workspace, written
-    once and read once. ``fp32_bound_ms`` is the CUDA cores' (ops at 67 TFLOP/s, inputs and
-    outputs only), the basis of the earlier kernels' rows.
+    ``bound_ms`` is the f32 path's: its products run in ``passes`` TF32 tensor-core passes
+    each (3×TF32, or K2's one pass under precision="fast"), so ops at 495/passes TFLOP/s,
+    and its bytes include the row chunks' workspace, written once and read once.
+    ``fp32_bound_ms`` is the CUDA cores' (ops at 67 TFLOP/s, inputs and outputs only), the
+    basis of the earlier kernels' rows.
     """
-    ops_ms, bytes_ms = ops / (TF32_TFLOPS / 3 * 1e9), (nbytes + workspace_bytes) / (HBM_TBS * 1e9)
+    ops_ms = ops / (TF32_TFLOPS / passes * 1e9)
+    bytes_ms = (nbytes + workspace_bytes) / (HBM_TBS * 1e9)
     fp32_ms = max(ops / (FP32_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9))
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "fp32_bound_ms": fp32_ms,
-        "path": _build.PATH_TF32,
+        "path": _build.PATH_TF32 if passes == 3 else _build.PATH_TF32_1,
     }
 
 
@@ -273,18 +297,26 @@ def gram_timings(args32: list[torch.Tensor]) -> dict:
     n, d = X.shape
     D = M_map.shape[1]
     K = 2 * D + 2
-    # The yardstick: one cuBLAS product on a precomputed feature block (FP32, TF32 off).
-    U = X @ M_map + b_map.reshape(1, -1)
+    # The yardstick: one cuBLAS product on a precomputed feature block, in IEEE FP32: the
+    # caller's TF32 is on in this script, so the yardstick enters the IEEE scope itself.
+    with matmul_precision("ieee"):
+        U = X @ M_map + b_map.reshape(1, -1)
     Y = torch.cat(
         [torch.cos(U) / math.sqrt(D), torch.sin(U) / math.sqrt(D), torch.ones_like(y)[:, None], y[:, None]],
         dim=1,
     )
     del U
     s2_col = s2[:, None]
+
+    def library():
+        with matmul_precision("ieee"):
+            return torch.matmul(Y.T, s2_col * Y)
+
     record = {
         "ms": time_ms(lambda: gram_mod.fused_augmented_gram(*args32)),
         "plain_ms": time_ms(lambda: gram_mod.gram_plain(*args32)),
-        "library_ms": time_ms(lambda: torch.matmul(Y.T, s2_col * Y)),
+        "library_ms": time_ms(library),
+        "library": "torch.matmul(Y.T, s2·Y) on the built features, IEEE FP32 (TF32 off)",
     }
     ops = n * K * (K + 1) + 2 * n * d * D  # upper triangle + phases
     nbytes = X.element_size() * (n * d + 2 * n + d * D + D + K * K)
@@ -294,25 +326,86 @@ def gram_timings(args32: list[torch.Tensor]) -> dict:
     return {**record, **bound(ops, nbytes, workspace), "shape": shape}
 
 
-def sweep_timings(args32: list[torch.Tensor], kw: dict) -> dict:
-    """K2's and its plain version's times on these f32 inputs, and its bound."""
+def sweep_timings(args32: list[torch.Tensor], kw: dict, precision: str = "high") -> dict:
+    """K2's and its plain version's times on these f32 inputs at ``precision``, and its
+    bound. Under "fast" the plain version runs its Gu, num and lev products in cuBLAS TF32,
+    the one pass the kernel takes."""
     X, M_map = args32[0], args32[1]
     n, d = X.shape
     D = M_map.shape[1]
     M2, G = args32[7].shape
+    kw = {k: v for k, v in kw.items() if k != "precision"}  # a recorded call's own precision
     record = {
-        "ms": time_ms(lambda: sweep_mod.fused_loo_sweep(*args32, **kw)),
-        "plain_ms": time_ms(lambda: sweep_mod.sweep_plain(*args32, **kw)),
+        "ms": time_ms(lambda: sweep_mod.fused_loo_sweep(*args32, **kw, precision=precision)),
+        "plain_ms": time_ms(lambda: sweep_mod.sweep_plain(*args32, **kw, precision=precision)),
         "library_ms": None,  # no single PyTorch call computes the LOO sweep
     }
     ops = 2 * n * M2 * M2 + 4 * n * M2 * G + 2 * n * d * D
     nbytes = X.element_size() * (n * d + 3 * n + d * D + D + M2 * M2 + M2 * G + M2 + 2 * G)
     Kp, Np, Gp = -(-M2 // 32) * 32, -(-M2 // 128) * 128, -(-G // 128) * 128
-    # W (hi, lo), Gu∘k and Gu∘Gu (hi, lo) of every row, Qsᵀ and r_allᵀ (hi, lo), each
-    # written once and read once
-    workspace = 4 * 2 * Kp * (6 * n + 2 * Np + 2 * Gp)
+    # W, Gu∘k and Gu∘Gu of every row, Qsᵀ and r_allᵀ, in their TF32 planes (hi and lo for
+    # 3×TF32, hi for one pass), each written once and read once
+    planes = 2 if precision == "high" else 1
+    workspace = 4 * 2 * planes * Kp * (3 * n + Np + Gp)
     shape = {"n": n, "d": d, "D": D, "G": G, "dtype": str(X.dtype)[6:]}
-    return {**record, **bound(ops, nbytes, workspace), "shape": shape}
+    return {**record, **bound(ops, nbytes, workspace, 3 if precision == "high" else 1), "shape": shape}
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(A: torch.Tensor, B: torch.Tensor, passes: int) -> torch.Tensor:
+    """A·B as ``csrc/gemm_sm90.cuh``'s product loop computes it: the contraction in
+    k-blocks of 32, each one run of lo·hi + hi·lo + hi·hi (hi·hi alone for one pass) on
+    hi = tf32(v), lo = tf32(v − hi), the runs added in order into a float32 sum."""
+    pad = (-A.shape[1]) % 32
+    A = torch.nn.functional.pad(A, (0, pad))
+    B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+    A_hi, B_hi = _tf32(A), _tf32(B)
+    A_lo, B_lo = _tf32(A - A_hi), _tf32(B - B_hi)
+    total = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32, device=A.device)
+    with matmul_precision("ieee"):
+        for k0 in range(0, A.shape[1], 32):
+            ks = slice(k0, k0 + 32)
+            run = A_hi[:, ks] @ B_hi[ks]
+            if passes == 3:
+                run = A_lo[:, ks] @ B_hi[ks] + A_hi[:, ks] @ B_lo[ks] + run
+            total += run
+    return total
+
+
+@matmul_precision("ieee")
+def emulated_sweep(X, M_map, b_map, y, s, s2, Qs, r_all, k, *, is_classifier: bool, inv_c0: float,
+                   passes: int, chunk_rows: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's float32 arithmetic in torch: the features in IEEE f32, then Gu = W·Qs, num and
+    lev in ``passes`` TF32 passes each (:func:`tf32_product`), then the kernel's epilogue.
+    The rounding of the kernel's products, without its order of summation: the yardstick a
+    one-pass result is held to where float64 says more about the data than about the
+    kernel."""
+    D = M_map.shape[1]
+    err = torch.zeros(r_all.shape[1], dtype=torch.float32, device=X.device)
+    obj = torch.zeros_like(err)
+    for start in range(0, X.shape[0], chunk_rows):
+        rows = slice(start, start + chunk_rows)
+        U = X[rows] @ M_map + b_map.reshape(1, -1)
+        ones = torch.ones((U.shape[0], 1), dtype=U.dtype, device=U.device)
+        W = torch.cat([torch.cos(U) / math.sqrt(D), ones, torch.sin(U) / math.sqrt(D), 0 * ones], dim=1)
+        Gu = tf32_product(W, Qs, passes)
+        num = inv_c0 * tf32_product(Gu * k[None, :], r_all, passes)
+        lev = inv_c0 * s2[rows, None] * tf32_product(Gu * Gu, r_all, passes)
+        y_b = y[rows, None]
+        e = (num - y_b) / (1.0 - lev)
+        if is_classifier:
+            e = torch.where(((y_b > 0) & (e > 0)) | ((y_b < 0) & (e < 0)), torch.zeros_like(e), e)
+        abs_e = torch.abs(e)
+        err_b = s[rows] @ abs_e
+        err += err_b
+        obj += err_b + (s[rows] @ (abs_e >= 1).float() + s[rows] @ torch.clamp(abs_e - 1, min=0.0)
+                        if is_classifier else 0.0)
+    return err, obj
 
 
 def phase_gram(dev: torch.device) -> dict:
@@ -347,6 +440,7 @@ def phase_gram(dev: torch.device) -> dict:
     return {"f32": f32, "G32": G32}
 
 
+@matmul_precision("ieee")
 def _sweep_inputs(G: torch.Tensor, n: int, D: int, num_gammas: int) -> dict:
     """Qs, λ, k and r_all from a real eigendecomposition of an augmented Gram."""
     dev, dtype = G.device, G.dtype
@@ -367,7 +461,10 @@ def phase_ragged(dev: torch.device) -> None:
     """Both kernels at shapes that are multiples of nothing (the masked edges), and at a
     width that takes the f64 sweep's smaller row groups, against their plain versions.
     Each case also reports how far the f32 plain version's sweep is from float64, the
-    yardstick for the f32 kernel's error."""
+    yardstick for the f32 kernel's error. K2's one-pass path runs at the f32 shapes too,
+    under :func:`check_sweep_fast` with the torch emulation of its rounding on the same
+    inputs: at few rows per feature the leverages come near 1, and 1/(1 − lev) magnifies
+    one pass's rounding in every implementation of it; the emulation says how much."""
     results = []
     # At D = 1800 the f32 case takes 20,011 rows: at 4,099 rows the leverages of 2M = 3602
     # features come so close to 1 that even the f32 plain version is far off float64
@@ -410,9 +507,20 @@ def phase_ragged(dev: torch.device) -> None:
             tag = f"ragged n={n} d={d} D={D} G={G} {dtype}"
             check(gram_rel <= tol_gram, f"{tag}: gram relative error {gram_rel}")
             check(sweep_rel <= tol_sweep, f"{tag}: sweep relative error {sweep_rel}")
-            results.append({"n": n, "d": d, "D": D, "G": G, "dtype": str(dtype).split(".")[-1],
-                            "gram_rel_err": gram_rel, "sweep_rel_err": sweep_rel,
-                            "sweep_plain_f32_rel_err": plain32_rel})
+            case = {"n": n, "d": d, "D": D, "G": G, "dtype": str(dtype).split(".")[-1],
+                    "gram_rel_err": gram_rel, "sweep_rel_err": sweep_rel, "sweep_plain_f32_rel_err": plain32_rel}
+            if dtype == torch.float32:
+                before = sweep_mod.path_launches[_build.PATH_TF32_1]
+                err_1, obj_1 = sweep_mod.fused_loo_sweep(*sweep_args, **kw, precision="fast")
+                check(sweep_mod.path_launches[_build.PATH_TF32_1] == before + 1, f"{tag}: no one-pass launch")
+                emulated = emulated_sweep(*sweep_args, **kw, passes=1)
+                torch.cuda.synchronize()
+                case["one_pass"] = {
+                    **check_sweep_fast(err_1, obj_1, err_p, obj_p, rel_err(err_k, err_p)[1], False, tag, emulated),
+                    "ms": time_ms(lambda: sweep_mod.fused_loo_sweep(*sweep_args, **kw, precision="fast")),  # noqa: B023
+                    "ms_3xtf32": time_ms(lambda: sweep_mod.fused_loo_sweep(*sweep_args, **kw)),  # noqa: B023
+                }
+            results.append(case)
     emit({"phase": "ragged", "cases": results})
 
 
@@ -430,10 +538,47 @@ def check_sweep_f32(err32, obj32, perr, pobj, tag: str) -> tuple[float, float, f
     return worst_abs, worst_rel, gap
 
 
+# K2's one-pass path (precision="fast") against float64: the LOO error (relative), a
+# regressor's objective (relative), and the float64 objective at the kernel's argmin
+# against its minimum. The fixed LOO error limit is 2.5× the worst of the torch emulation
+# of the kernel's rounding at n = 2048 (tests/test_torch_kernels.py, 7.9e-5). On this
+# script's larger operands that emulation (:func:`emulated_sweep`) can itself lie past the
+# fixed limits: one pass rounds the shared Qs and r_all once for all rows, so its error
+# does not average out over them and depends on the data. Each relative limit is
+# therefore the larger of the fixed one and 2× the emulation's own distance on the same
+# inputs, computed here on the card and reported beside each reading.
+# A classifier's objective adds s·[|e| ≥ 1], a step that one pass flips on rows near
+# |e| = 1, so it is held by its argmin. One pass must also be at least 10× further from
+# float64 than the 3×TF32 path on the same tensors, or the path did not take one pass.
+FAST_ERR_TOL, FAST_OBJ_TOL, FAST_ARGMIN_TOL, FAST_MIN_RATIO = 2e-4, 1e-4, 1e-3, 10.0
+
+
+def check_sweep_fast(err1, obj1, perr, pobj, err3_rel: float, is_classifier: bool, tag: str,
+                     emulated: tuple) -> dict:
+    """Hold a one-pass f32 sweep against its f64 plain version, the (err, obj) of
+    :func:`emulated_sweep` on the same inputs, and the 3×TF32 path's error on the same
+    tensors; the readings."""
+    err_abs, err_rel = rel_err(err1, perr)
+    obj_abs, obj_rel = rel_err(obj1, pobj)
+    emu_err, emu_obj = rel_err(emulated[0], perr)[1], rel_err(emulated[1], pobj)[1]
+    err_tol, obj_tol = max(FAST_ERR_TOL, 2.0 * emu_err), max(FAST_OBJ_TOL, 2.0 * emu_obj)
+    readings = {"emulated_loo_err_rel_err": emu_err, "emulated_objective_rel_err": emu_obj,
+                "loo_err_limit": err_tol, "objective_limit": None if is_classifier else obj_tol}
+    check(math.isfinite(err_rel) and err_rel <= err_tol, f"sweep {tag} one pass: LOO error relative error {err_rel} > {err_tol}")
+    if not is_classifier:
+        check(obj_rel <= obj_tol, f"sweep {tag} one pass: objective relative error {obj_rel} > {obj_tol}")
+    p_min = float(pobj.min())
+    gap = abs(float(pobj[int(torch.argmin(obj1))]) - p_min) / abs(p_min)
+    check(gap <= FAST_ARGMIN_TOL, f"sweep {tag} one pass: argmin objective {gap} from the plain minimum")
+    check(err_rel >= FAST_MIN_RATIO * err3_rel, f"sweep {tag}: one pass {err_rel} is not 10× 3×TF32's {err3_rel}")
+    return {"max_abs_err": max(err_abs, obj_abs), "loo_err_rel_err": err_rel, "objective_rel_err": obj_rel,
+            "argmin_objective_gap": gap, "ratio_to_3xtf32": err_rel / err3_rel, **readings}
+
+
 def phase_sweep(data: dict) -> None:
     f32 = data["f32"]
     worst_abs, worst_rel, worst_rel64, argmin_gap = 0.0, 0.0, 0.0, 0.0
-    timings = {}
+    timings, fast = {}, {}
     for task in ("regressor", "classifier"):
         is_classifier = task == "classifier"
         y32 = f32["y"]
@@ -449,18 +594,23 @@ def phase_sweep(data: dict) -> None:
         kw = {"is_classifier": is_classifier, "inv_c0": sw32["inv_c0"]}
         before = dict(sweep_mod.path_launches)
         err32, obj32 = sweep_mod.fused_loo_sweep(*args32, **kw)
+        err1, obj1 = sweep_mod.fused_loo_sweep(*args32, **kw, precision="fast")
         err64, obj64 = sweep_mod.fused_loo_sweep(*args64, **kw)
         took = {p: sweep_mod.path_launches[p] - before[p] for p in before}
-        check(took == {_build.PATH_TF32: 1, _build.PATH_FP64: 1}, f"sweep {task}: the f32 and f64 calls took {took}")
+        check(took == {_build.PATH_TF32: 1, _build.PATH_TF32_1: 1, _build.PATH_FP64: 1},
+              f"sweep {task}: the f32, one-pass and f64 calls took {took}")
         perr, pobj = sweep_mod.sweep_plain(*args64, **kw)
         torch.cuda.synchronize()
         a, r, gap = check_sweep_f32(err32, obj32, perr, pobj, task)
         worst_abs, worst_rel, argmin_gap = max(worst_abs, a), max(worst_rel, r), max(argmin_gap, gap)
+        emulated = emulated_sweep(*args32, **kw, passes=1)
+        fast[task] = check_sweep_fast(err1, obj1, perr, pobj, rel_err(err32, perr)[1], is_classifier, task, emulated)
         for ours, ref in ((err64, perr), (obj64, pobj)):
             _, r = rel_err(ours, ref)
             check(r <= 1e-10, f"sweep {task} f64: max relative error {r}")
             worst_rel64 = max(worst_rel64, r)
         timings[task] = sweep_timings(args32, kw)
+        fast[task].update({k: v for k, v in sweep_timings(args32, kw, "fast").items() if k != "shape"})
     emit({
         "phase": "sweep",
         "max_abs_err": worst_abs,
@@ -469,6 +619,7 @@ def phase_sweep(data: dict) -> None:
         "argmin_objective_gap": argmin_gap,
         **timings["regressor"],
         "ms_classifier": timings["classifier"]["ms"],
+        "one_pass": fast,
     })
 
 
@@ -535,9 +686,21 @@ def breakdown_1m(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
     solve_s, result = timed(lambda: primal_fit_streaming(X_d, pt["M"], pt["b"], y_d, s_d, g_d, None, **kw))
     pull_s, _ = timed(lambda: {k: v.cpu().numpy() for k, v in {**result, **pt}.items()})
     del X_d, result, pt
+    return {
+        "upload_s": upload_s,
+        "device_pretransform_s": pt_s,
+        "solve_s": solve_s,
+        "pull_s": pull_s,
+        **profiled_fit(X, y, dev),
+    }
+
+
+def profiled_fit(X, y, dev: torch.device, **params) -> dict:
+    """One whole ``NeoLSSVM(**params).fit`` under torch.profiler: its seconds, the device
+    time by kernel and the device's idle share over the fit."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        profiled_s, _ = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
+        profiled_s, _ = timed(lambda: NeoLSSVM(device=dev, **params).fit(X, y))
     kernels = []  # device kernels only: an operator's device time is its kernels' again
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
@@ -546,10 +709,6 @@ def breakdown_1m(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
     kernels.sort(key=lambda k: -k["ms"])
     device_ms = sum(k["ms"] for k in kernels)
     return {
-        "upload_s": upload_s,
-        "device_pretransform_s": pt_s,
-        "solve_s": solve_s,
-        "pull_s": pull_s,
         "profiled_fit_s": profiled_s,
         "device_busy_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / (profiled_s * 1e3),
@@ -626,6 +785,7 @@ def phase_main_path_kernels(calls: dict) -> tuple[dict, dict]:
     g_abs, g_rel = gram_err(G_k, gram_mod.gram_plain(*(a.double() for a in g_args)))
     check(math.isfinite(g_rel) and g_rel <= GRAM_TOL_F32_1M, f"1M gram f32: max|ΔG_ij|/√(G_ii·G_jj) = {g_rel}")
     s_args, s_kw, (err_k, obj_k) = calls["fused_loo_sweep"]
+    check(s_kw.get("precision") == "high", f"the default 1M fit called K2 with {s_kw}")
     perr, pobj = sweep_mod.sweep_plain(*(a.double() for a in s_args), **s_kw)
     s_abs, s_rel, gap = check_sweep_f32(err_k, obj_k, perr, pobj, "1M fit")
     gram_record = {
@@ -651,7 +811,7 @@ def phase_main_path_kernels(calls: dict) -> tuple[dict, dict]:
     return gram_record, sweep_record
 
 
-def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
+def phase_fit_1m(dev: torch.device) -> tuple[dict, dict, dict]:
     X, y = make_dataset(1 << 20, D_IN, seed=0)
     X_test, y_test = make_dataset(65_536, D_IN, seed=1)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -695,12 +855,126 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict]:
     gram_record, sweep_record = phase_main_path_kernels(calls)
     gram_record["launches"] = launches["fused_augmented_gram"]
     sweep_record["launches"] = launches["fused_loo_sweep"]
+    high = {"gammas": model.γs_, "loo_errors": model.loo_errors_γs_, "loo_score": model.loo_score_, "gamma": model.γ_}
     del calls, model
     torch.cuda.empty_cache()
     emit({"phase": "fit_1m_breakdown", **breakdown_1m(X, y, dev)})
     phase_fit_1m_host(X, y, X_test, y_test, dev)
     phase_pretransform(X, y, dev)
-    return gram_record, sweep_record
+    return gram_record, sweep_record, high
+
+
+def gamma_gap(gamma: float, gammas: np.ndarray, loo_errors: np.ndarray) -> float:
+    """How far from optimal ``gamma`` is under a "high" fit's LOO error over the γ grid:
+    that error at the grid point nearest ``gamma``, relative to its minimum, less 1 (as
+    the JAX package's tests hold precision="fast": the objective is flat near its
+    minimum, so the grid index is no gate)."""
+    idx = int(np.argmin(np.abs(gammas - gamma)))
+    best = float(np.min(loo_errors))
+    return float(loo_errors[idx]) / best - 1.0
+
+
+def phase_fast(dev: torch.device, high_1m: dict) -> dict:
+    """``precision="fast"`` on the card, with the caller's TF32 on throughout:
+    (a) the default 1M fit, which must take the device pre-transform and launch K1 once
+    on the 3×TF32 path and K2 once on the one-pass path; γ near-optimal under the "high"
+    fit's LOO error (rel 1e-3) and LOO R² within 0.01 of it. (b) That K2 call's output
+    against its f64 plain version on the fit's own tensors, under the one-pass limits,
+    then timed: the ``kernels`` line's one-pass record. (c) The 262k in-memory route (no
+    kernel; the two sweep contractions in cuBLAS TF32): γ near-optimal, LOO R² within
+    0.005 of the "high" fit. (d) The TF32 scope: the caller's TF32 is really on (a plain
+    product differs from its IEEE value), every fit and serving call leaves the caller's
+    ``fp32_precision`` as it found it, and a "high" model's ``predict_std`` and
+    ``decision_function`` equal, bit for bit, their values with the caller's TF32 off, as
+    do the same model's after a pickle and a state-dict round trip."""
+    matmul = torch.backends.cuda.matmul
+    caller = matmul.fp32_precision
+    check(caller == "tf32", f"fast: the caller's fp32_precision is {caller!r}, not 'tf32'")
+    X, y = make_dataset(1 << 20, D_IN, seed=0)
+    with recording_kernel_calls() as calls:
+        reset_launches()
+        fit_s, model = timed(lambda: NeoLSSVM(device=dev, precision="fast").fit(X, y))
+        paths = _launches_by_path()
+    check(matmul.fp32_precision == caller, f"fast: the fit left fp32_precision {matmul.fp32_precision!r}")
+    check(paths == _one_launch_each(_build.PATH_TF32, _build.PATH_TF32_1), f"fast: the 1M fit's launches {paths}")
+    check(model.pre_transform_ == "device", f"fast: the 1M fit took the {model.pre_transform_} pre-transform")
+    gap_1m = gamma_gap(model.γ_, high_1m["gammas"], high_1m["loo_errors"])
+    loo_diff_1m = abs(model.loo_score_ - high_1m["loo_score"])
+    check(gap_1m <= 1e-3, f"fast 1M: γ {model.γ_} is {gap_1m} from optimal under the high fit's LOO error")
+    check(loo_diff_1m <= 0.01, f"fast 1M: LOO R² {model.loo_score_} vs {high_1m['loo_score']}")
+    objective_diff = float(np.max(np.abs(model.loo_errors_γs_ - high_1m["loo_errors"]) / high_1m["loo_errors"]))
+    # (b) the one-pass K2 on the fit's own tensors
+    s_args, s_kw, (err_k, obj_k) = calls["fused_loo_sweep"]
+    check(s_kw.get("precision") == "fast", f"fast: K2 was called with {s_kw}")
+    kw = {k: v for k, v in s_kw.items() if k != "precision"}
+    perr, pobj = sweep_mod.sweep_plain(*(a.double() for a in s_args), **kw)
+    err3, _ = sweep_mod.fused_loo_sweep(*s_args, **kw)
+    emulated = emulated_sweep(*s_args, **kw, passes=1)
+    readings = check_sweep_fast(err_k, obj_k, perr, pobj, rel_err(err3, perr)[1], kw["is_classifier"], "1M fast fit",
+                                emulated)
+    record = {
+        "name": "fused_loo_sweep_one_pass",
+        "route": "cuda",
+        "source": "neo_ls_svm_torch/ops/cuda/csrc/sweep.cu",
+        "replaces": "neo_ls_svm_tpu/ops/pallas/sweep.py:111",
+        "precision": "fast (mxu_precision=DEFAULT in the TPU kernel)",
+        "launches": paths["fused_loo_sweep"][_build.PATH_TF32_1],
+        **readings,
+        **sweep_timings(list(s_args), kw, "fast"),
+    }
+    emit({"phase": "fast", "n": 1 << 20, "fit_s": fit_s, "pre_transform_": model.pre_transform_,
+          "launches_by_path": paths, "gamma": model.γ_, "high_gamma": high_1m["gamma"], "gamma_gap": gap_1m,
+          "loo_score": model.loo_score_, "high_loo_score": high_1m["loo_score"], "loo_score_diff": loo_diff_1m,
+          "loo_errors_max_rel_diff_from_high": objective_diff, "kernel": record,
+          "breakdown": profiled_fit(X, y, dev, precision="fast")})
+    del calls, model, s_args, err3
+    torch.cuda.empty_cache()
+    # (c) the in-memory route at 262,144 rows, in turns with its "high" twin
+    X2, y2 = make_dataset(262_144, D_IN, seed=0)
+    runs, models = {"fast": [], "high": []}, {}
+    for precision in ("fast", "high", "high", "fast"):
+        reset_launches()
+        seconds, fitted = timed(lambda: NeoLSSVM(device=dev, precision=precision).fit(X2, y2))  # noqa: B023
+        check(gram_mod.launches == 0 and sweep_mod.launches == 0, f"fast 262k: the {precision} fit launched a kernel")
+        check(matmul.fp32_precision == caller, f"fast 262k: the {precision} fit left {matmul.fp32_precision!r}")
+        runs[precision].append(seconds)
+        models[precision] = fitted
+    fast262, high262 = models["fast"], models["high"]
+    check(fast262.pre_transform_ == "device", f"fast 262k: took the {fast262.pre_transform_} pre-transform")
+    gap_262 = gamma_gap(fast262.γ_, high262.γs_, high262.loo_errors_γs_)
+    loo_diff_262 = abs(fast262.loo_score_ - high262.loo_score_)
+    check(gap_262 <= 1e-3, f"fast 262k: γ {fast262.γ_} is {gap_262} from optimal under the high fit's LOO error")
+    check(loo_diff_262 <= 0.005, f"fast 262k: LOO R² {fast262.loo_score_} vs {high262.loo_score_}")
+    # The TF32 contractions took effect: the objective over the grid is not the high fit's.
+    diff_262 = float(np.max(np.abs(fast262.loo_errors_γs_ - high262.loo_errors_γs_) / high262.loo_errors_γs_))
+    check(diff_262 > 0, "fast 262k: the objective equals the high fit's bit for bit: no TF32 product ran")
+    # (d) the TF32 scope
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((2048, 2048), device=dev, generator=gen)
+    with_tf32 = A @ A
+    with matmul_precision("ieee"):
+        ieee = A @ A
+    check(not torch.equal(with_tf32, ieee), "fast: the caller's TF32 setting does not reach torch.matmul")
+    X_test, _ = make_dataset(65_536, D_IN, seed=1)
+    serving = {"predict_std": lambda m: m.predict_std(X_test), "decision_function": lambda m: m.decision_function(X_test)}
+    matmul.fp32_precision = "ieee"
+    try:
+        want = {name: call(high262) for name, call in serving.items()}
+    finally:
+        matmul.fp32_precision = caller
+    restored = {"fitted": high262, "pickle": pickle.loads(pickle.dumps(high262)),
+                "state_dict": NeoLSSVM.from_state_dict(high262.to_state_dict(), device=dev)}
+    for how, m in restored.items():
+        for name, call in serving.items():
+            got = call(m)
+            check(matmul.fp32_precision == caller, f"fast: {how} {name} left fp32_precision {matmul.fp32_precision!r}")
+            check(bool(np.array_equal(got, want[name])), f"fast: {how} {name} differs with the caller's TF32 on")
+    emit({"phase": "fast_262k", "n": 262_144, "route": "inmemory", "fit_s": runs, "gamma": fast262.γ_,
+          "high_gamma": high262.γ_, "gamma_gap": gap_262, "loo_score": fast262.loo_score_,
+          "high_loo_score": high262.loo_score_, "loo_score_diff": loo_diff_262, "loo_errors_max_rel_diff_from_high": diff_262,
+          "tf32_scope": {"caller": caller, "tf32_vs_ieee_matmul_max_abs": float((with_tf32 - ieee).abs().max()),
+                         "bit_equal_with_caller_tf32_on_and_off": sorted(f"{h}.{n}" for h in restored for n in serving)}})
+    return record
 
 
 def phase_fit_1m_host(X, y, X_test, y_test, dev: torch.device) -> None:
@@ -1040,9 +1314,12 @@ def _launches_by_path() -> dict:
     return {"fused_augmented_gram": dict(gram_mod.path_launches), "fused_loo_sweep": dict(sweep_mod.path_launches)}
 
 
-def _one_launch_each(path: str) -> dict:
-    other = _build.PATH_FP64 if path == _build.PATH_TF32 else _build.PATH_TF32
-    return {name: {path: 1, other: 0} for name in ("fused_augmented_gram", "fused_loo_sweep")}
+def _one_launch_each(path: str, sweep_path: str | None = None) -> dict:
+    """One launch of each kernel, K1 on ``path`` and K2 on ``sweep_path`` (default: the
+    same path), and none on any other path."""
+    paths = {"fused_augmented_gram": path, "fused_loo_sweep": sweep_path or path}
+    mods = {"fused_augmented_gram": gram_mod, "fused_loo_sweep": sweep_mod}
+    return {name: {p: int(p == paths[name]) for p in mods[name].path_launches} for name in mods}
 
 
 def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple) -> None:
@@ -1055,7 +1332,8 @@ def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple)
     from neo_ls_svm_torch.parallel.mesh import make_mesh, sharded_primal_fit_streaming  # noqa: PLC0415
 
     torch.cuda.set_device(rank if backend == "nccl" else 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # The caller's TF32 is on, as in main(): every fit must scope its own products.
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
     torch.set_num_threads(2)  # four ranks share the host's cores
     dist.init_process_group(backend, init_method=f"file://{workdir}/rendezvous-{backend}", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=600))
@@ -1066,14 +1344,16 @@ def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple)
         X, y, M_map, b_map = (load(k) for k in ("X", "y", "M", "b"))
         kw = {"is_classifier": False, "row_chunk": MESH_ROW_CHUNK}
         meshes = {shape: make_mesh(*shape) for shape in ((world, 1), (world // 2, 2))}
-        for tag, shape, rows, dtype in (("f32", (world, 1), len(y), np.float32),
-                                         ("f64", (world, 1), N_KERNEL, np.float64),
-                                         ("feature_axis", (world // 2, 2), len(y), np.float32)):
+        for tag, shape, rows, dtype, precision in (("f32", (world, 1), len(y), np.float32, "high"),
+                                                    ("f32_fast", (world, 1), len(y), np.float32, "fast"),
+                                                    ("f64", (world, 1), N_KERNEL, np.float64, "high"),
+                                                    ("feature_axis", (world // 2, 2), len(y), np.float32, "high")):
             mesh = meshes[shape]
             ops = [np.asarray(a[:rows] if a.shape[0] == len(y) else a, dtype) for a in (X, M_map, b_map, y)]
             reset_launches()
             seconds, r = timed(lambda: sharded_primal_fit_streaming(  # noqa: B023
-                mesh, ops[0], ops[1], ops[2], ops[3], np.ones(rows, dtype), gamma_grid(dtype), **kw))
+                mesh, ops[0], ops[1], ops[2], ops[3], np.ones(rows, dtype), gamma_grid(dtype), **kw,
+                sweep_precision=precision))  # noqa: B023
             note(f"mesh: {backend} rank {rank}: {tag} fit {seconds:.2f} s")
             out[tag] = {"seconds": seconds, "launches_by_path": _launches_by_path(),
                         **{k: r[k].cpu().numpy() for k in ("loo_errors_gammas", "optimum_index", "loo_score", "beta_emb")}}
@@ -1240,6 +1520,21 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
         **agree, "f64_rows": N_KERNEL, "f64_beta_max_abs_diff": float(np.max(np.abs(f64["beta_emb"] - single["f64"]["beta_emb"]))),
         "launches_per_rank": [r["f32"]["launches_by_path"] for r in ranks],
     }
+    # (a, fast) The same fit under sweep_precision="fast": K2 once a rank on the one-pass path.
+    fast = ranks[0]["f32_fast"]
+    for rank, result in enumerate(ranks):
+        check(result["f32_fast"]["launches_by_path"] == _one_launch_each(_build.PATH_TF32, _build.PATH_TF32_1),
+              f"mesh f32 fast rank {rank}: launches {result['f32_fast']['launches_by_path']}")
+    single_errors = single["f32"]["loo_errors_gammas"].astype(np.float64)
+    fast_gap = float(single_errors[int(fast["optimum_index"])]) / float(single_errors.min()) - 1.0
+    fast_loo_diff = abs(float(fast["loo_score"]) - float(single["f32"]["loo_score"]))
+    check(fast_gap <= 1e-3, f"mesh f32 fast: γ {fast_gap} from optimal under one GPU's high objective")
+    check(fast_loo_diff <= 0.01, f"mesh f32 fast: LOO R² {fast['loo_score']} vs {single['f32']['loo_score']}")
+    record["function_level_fast"] = {
+        "seconds_rank0": fast["seconds"], "loo_score": float(fast["loo_score"]), "loo_score_diff_from_single_high": fast_loo_diff,
+        "gamma_index": int(fast["optimum_index"]), "gamma_gap": fast_gap,
+        "launches_per_rank": [r["f32_fast"]["launches_by_path"] for r in ranks],
+    }
     # (b) The feature axis, (2, 2): plain torch passes, no kernel.
     feature = ranks[0]["feature_axis"]
     check(all(v == 0 for p in feature["launches_by_path"].values() for v in p.values()), "mesh (2, 2) launched a kernel")
@@ -1253,6 +1548,8 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
                            "note": "four ranks share one card and sum through the host: the times say nothing of scaling"}
     estimator_launches = {name: [r["estimator"]["launches_by_path"][name][_build.PATH_TF32] for r in ranks]
                           for name in ("fused_augmented_gram", "fused_loo_sweep")}
+    estimator_launches["fused_loo_sweep_one_pass"] = [r["f32_fast"]["launches_by_path"]["fused_loo_sweep"][_build.PATH_TF32_1]
+                                                      for r in ranks]
     # (d) NCCL: a world of one rank through the mesh route, against the default 1M fit.
     dist.init_process_group("nccl", init_method=f"file://{MESH_DIR}/rendezvous-nccl-one", world_size=1, rank=0)
     try:
@@ -1283,7 +1580,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # The caller's TF32 is on for the whole run: every gate must pass with it, which shows
+    # that the port's fits and serving entries scope their own products (utils/precision.py).
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     if name != CARD:
@@ -1308,7 +1607,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ragged(dev)
     phase_parity_small(dev)
-    gram_record, sweep_record = phase_fit_1m(dev)
+    gram_record, sweep_record, high_1m = phase_fit_1m(dev)
+    fast_record = phase_fast(dev, high_1m)
     phase_fit_262k(dev)
     phase_fit_dual(dev)
     X, y = make_dataset(1 << 20, D_IN, seed=0)
@@ -1320,9 +1620,9 @@ def main() -> int:
     del classifier, regressor
     phase_tensor_io(X, y, dev)
     mesh_launches = phase_mesh(dev)
-    for kernel in (gram_record, sweep_record):
+    for kernel in (gram_record, sweep_record, fast_record):
         kernel["mesh_launches_per_rank"] = mesh_launches[kernel["name"]]
-    emit({"kernels": [gram_record, sweep_record]})
+    emit({"kernels": [gram_record, sweep_record, fast_record]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

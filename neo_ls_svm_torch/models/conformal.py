@@ -27,6 +27,7 @@ from neo_ls_svm_torch.models.dual import dual_decision_var
 from neo_ls_svm_torch.models.primal import primal_decision_var
 from neo_ls_svm_torch.ops.weighted_quantile import interp
 from neo_ls_svm_torch.utils.device import is_tensor, to_device
+from neo_ls_svm_torch.utils.precision import matmul_precision
 from neo_ls_svm_torch.utils.validation import check_is_fitted, is_pandas
 
 if TYPE_CHECKING:  # pandas is an optional I/O convenience, never a runtime dependency.
@@ -57,6 +58,7 @@ def _coverage_clamped_biases(
     return bias_abs, bias_rel
 
 
+@matmul_precision("ieee")
 def _conformal_quantiles(
     yhat: torch.Tensor,  # (n,) decision-function values
     std: torch.Tensor,  # (n,) Bayesian predictive std (the nonconformity score)
@@ -69,7 +71,8 @@ def _conformal_quantiles(
 ) -> torch.Tensor:
     """The conformal combine (ref ``_neo_ls_svm.py:554-624``): two tiny products against
     the fitted CQR planes, the per-row min-dispersion choice between absolute and
-    relative corrections, and the recentre on ŷ. Returns (n, Q)."""
+    relative corrections, and the recentre on ŷ. Returns (n, Q). The products are IEEE
+    float32 whatever the caller set, as the serving entries' are."""
     abs_yhat = torch.abs(yhat)
     feats = torch.stack([std, abs_yhat], dim=1) if is_regressor else std[:, None]
     pred_abs = feats @ beta_abs[:-1] + (beta_abs[-1] + bias_abs)[None, :]

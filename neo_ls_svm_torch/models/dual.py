@@ -11,17 +11,20 @@ contraction Σₖ F̃ᵢₖ·H⁽ᵍ⁾ᵢₖ is refactored through the eigenbas
 O(n²·G). Counterpart of ``neo_ls_svm_tpu.models.dual``.
 
 Used for n ≤ 1024 (ref ``:375``), so everything is one untiled block on the device. The
-products are cuBLAS's, in IEEE arithmetic (the estimator keeps TF32 off).
+products are cuBLAS's, in IEEE float32 or float64 whatever the caller set
+(``utils/precision.py``), as the JAX functions' ``precision=HIGHEST``.
 """
 
 import torch
 
 from neo_ls_svm_torch.models.primal import _clip_classifier_residuals
 from neo_ls_svm_torch.ops.kernels import rbf_kernel, squared_distances
+from neo_ls_svm_torch.utils.precision import matmul_precision
 
 RBF_GAMMA = 0.5  # Fixed kernel width; the metric is learned upstream (ref :257,261).
 
 
+@matmul_precision("ieee")
 def dual_fit(
     X: torch.Tensor,
     y: torch.Tensor,
@@ -104,11 +107,13 @@ def dual_fit(
     }
 
 
+@matmul_precision("ieee")
 def dual_decision_function(X: torch.Tensor, X_train: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """ŷ(x) = k(x, X)α̂ + 1ᵀα̂ (ref ``:666-671``)."""
     return rbf_kernel(X, X_train, RBF_GAMMA) @ alpha + alpha.sum()
 
 
+@matmul_precision("ieee")
 def dual_decision_var(
     X: torch.Tensor, X_train: torch.Tensor, alpha: torch.Tensor, chol: torch.Tensor
 ) -> torch.Tensor:
@@ -120,6 +125,7 @@ def dual_decision_var(
     return torch.stack([yhat, var], dim=1)
 
 
+@matmul_precision("ieee")
 def dual_predict_var(X: torch.Tensor, X_train: torch.Tensor, chol: torch.Tensor) -> torch.Tensor:
     """σ²(x) = K(x,x) - k(x,X)(LLᵀ)⁻¹k(X,x) (ref ``:471-475``)."""
     K = rbf_kernel(X, X_train, RBF_GAMMA)

@@ -23,6 +23,16 @@ single-GPU model does.
 After a fit, the isotonic calibrator of a classifier and the two-level conformal split are
 made at first use (``predict_proba``, ``predict_quantiles``, pickling, …), not in ``fit``:
 at a million rows their sorts and permutation are host work of the order of the whole fit.
+
+``fit`` and every serving entry run their float32 cuBLAS products in IEEE float32 and then
+restore the caller's ``torch.backends.cuda.matmul.fp32_precision`` (``utils/precision.py``):
+the caller's TF32 setting governs the caller's own products only. ``precision="fast"``
+(the JAX package's ``sweep_precision=DEFAULT``) runs the γ-sweep alone in one TF32 pass,
+on every primal route.
+
+A pickle carries no device: a restored model serves on the device its ``device``
+parameter names in the loading process (``"cuda"``: the current device), resolved at first
+use, never on the index it was fitted on and never on the CPU by itself.
 """
 
 from typing import TYPE_CHECKING, Any, Literal
@@ -72,6 +82,7 @@ from neo_ls_svm_torch.utils.device import (
     torch_dtype,
 )
 from neo_ls_svm_torch.utils.metrics import accuracy_score, r2_score
+from neo_ls_svm_torch.utils.precision import matmul_precision
 from neo_ls_svm_torch.utils.transfer import upload_rows
 from neo_ls_svm_torch.utils.validation import (
     _check_n_features,
@@ -286,6 +297,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         X = X.detach()
         return X if X.dtype in (torch.float32, torch.float64) else X.to(torch.float64)
 
+    @matmul_precision("ieee")
     def fit(
         self,
         X: "npt.NDArray | torch.Tensor | pd.DataFrame",
@@ -374,15 +386,6 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             msg = "Target type not supported"
             raise ValueError(msg)
         is_classifier = self._estimator_type == "classifier"
-        if self.precision == "high":
-            # f32 accuracy, as the JAX package's Precision.HIGHEST: cuBLAS products in IEEE
-            # float32 (TF32 off), the hand-written f32 kernels in 3×TF32 (three tensor-core
-            # passes, as HIGHEST's multi-pass bf16). precision="fast" runs the same products
-            # in this port (a one-pass variant waits, ROADMAP.md).
-            torch.backends.cuda.matmul.allow_tf32 = False
-            if torch.backends.cuda.matmul.allow_tf32:
-                msg = "TF32 matmuls are still enabled; precision='high' needs IEEE float32."
-                raise RuntimeError(msg)
         # Primal vs dual routing (ref :375).
         self.dual_ = bool(X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual)
         self.primal_ = not self.dual_
@@ -524,24 +527,15 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             M_map, b_map = fm.linear_map()
             M_d, b_d = _to_device(M_map.astype(dtype), device), _to_device(b_map.astype(dtype), device)
             C_emb = _complexity_embedding(fm, dtype, n_rows, device)
+        # precision="fast" reaches the γ-sweep alone, as JAX's sweep_precision=DEFAULT.
+        kw = {"is_classifier": is_classifier, "num_samples": n_rows, "sweep_precision": self.precision}
         if route == "streaming":
             result = primal_fit_streaming(
-                X_d,
-                M_d,
-                b_d,
-                y_d,
-                s_d,
-                g_d,
-                C_emb,
-                is_classifier=is_classifier,
-                row_chunk=STREAMING_ROW_CHUNK,
-                num_samples=n_rows,
+                X_d, M_d, b_d, y_d, s_d, g_d, C_emb, row_chunk=STREAMING_ROW_CHUNK, **kw
             )
             result = trim_per_row(result, n_rows)
         else:
-            result = primal_fit(
-                X_d, M_d, b_d, y_d, s_d, g_d, C_emb, is_classifier=is_classifier, num_samples=n_rows
-            )
+            result = primal_fit(X_d, M_d, b_d, y_d, s_d, g_d, C_emb, **kw)
         return {**self._keep_primal_state(result, M_d, b_d, C_emb, n_rows, num_features), **pt}
 
     def _keep_primal_state(
@@ -605,6 +599,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                 orthogonal=isinstance(fm, OrthogonalRandomFourierFeatures),
                 stream=stream,
                 row_chunk=STREAMING_ROW_CHUNK,
+                sweep_precision=self.precision,
             )
             return self._keep_primal_state(result, result["pt_M"], result["pt_b"], None, n_rows, num_features)
         # Every rank runs the host pre-transform: NumPy, the same bits on each.
@@ -614,7 +609,16 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         C_emb = _complexity_embedding(fm, dtype, n_rows, device)
         sharded_fit = sharded_primal_fit_streaming if stream else sharded_primal_fit
         result = sharded_fit(
-            self.mesh_, X, M_d, b_d, y_, sample_weight_, self.γs_, C_emb, is_classifier=is_classifier
+            self.mesh_,
+            X,
+            M_d,
+            b_d,
+            y_,
+            sample_weight_,
+            self.γs_,
+            C_emb,
+            is_classifier=is_classifier,
+            sweep_precision=self.precision,
         )
         return self._keep_primal_state(result, M_d, b_d, C_emb, n_rows, num_features)
 
@@ -735,8 +739,13 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         self.conformal_l1_: dict[str, dict[tuple[float, ...], Any]] = {"Δŷ": {}, "Δŷ/ŷ": {}}
 
     def __getattr__(self, name: str) -> Any:
-        # Normal lookup failed: a calibration attribute that the last fit has not made
-        # yet is made now.
+        # Normal lookup failed. A restored model's device is resolved from the device
+        # parameter at its first use, in this process (it raises where that device is
+        # missing: nothing moves to the CPU by itself).
+        if name == "device_" and "γ_" in self.__dict__:
+            self.device_ = self._resolve_device()
+            return self.device_
+        # A calibration attribute that the last fit has not made yet is made now.
         maker = _LAZY_CALIBRATION.get(name)
         if maker is not None and self.__dict__.get("_calibration_ctx") is not None:
             getattr(self, maker)()
@@ -747,11 +756,13 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
 
     def __getstate__(self) -> dict[str, Any]:
         """The pickled state: everything a fit left, with the calibration state made first
-        and without the device handles (the host attributes carry the same state)."""
+        and without the device handles (the host attributes carry the same state) or the
+        device they lie on: the loading process resolves its own (``__getattr__``)."""
         self._materialize_calibrator()
         self._materialize_conformal_split()
         state = dict(self.__dict__)
         state.pop("_device_cache", None)
+        state.pop("device_", None)
         state.pop("_calibration_ctx", None)
         # A mesh is a resource of the process group: the model restores on one device.
         state.pop("mesh_", None)
@@ -835,11 +846,13 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             return (X - off_d) * inv_scale_d
         return X @ M_d + off_d
 
+    @matmul_precision("ieee")
     def _serve(self, X: "npt.NDArray | torch.Tensor", primal_fn: Any, dual_fn: Any, *, device_out: bool) -> Any:
         """Run the model's serving function over a validated X: ``primal_fn`` on chunks of
         X, or ``dual_fn`` on chunks of the dual feature map's transform of X (on the host
         for a host array, where that map was fitted; on the device for a tensor). The one
-        route choice of every serving entry, so the host and tensor lanes cannot part."""
+        route choice of every serving entry, so the host and tensor lanes cannot part; its
+        products are IEEE float32 whatever the caller set."""
         if self.primal_:
             return self._in_chunks(X, primal_fn, device_out=device_out)
         if is_tensor(X):

@@ -18,16 +18,23 @@ product WᵀS²W, the eigh is a real symmetric 2M×2M decomposition, and the γ-
 Every function takes tensors on one device and computes there: the tensors' device, not
 a switch, decides whether the streaming solver runs the CUDA kernels
 (``ops/cuda/gram.py``, ``ops/cuda/sweep.py``) or their plain PyTorch versions.
+
+Every public function runs its float32 products in IEEE float32 (``utils/precision.py``),
+as the JAX functions' ``precision=HIGHEST`` default, whatever the caller set for its own
+cuBLAS work. ``sweep_precision="fast"`` (JAX's ``sweep_precision=DEFAULT``) runs the
+γ-sweep's products only in one TF32 pass: in memory the two contractions, streaming K2's
+one-pass path.
 """
 
 from collections.abc import Callable
-from typing import Any
+from typing import Any, Literal
 
 import numpy as np
 import torch
 
 from neo_ls_svm_torch.ops.cuda.gram import fused_augmented_gram, gram_plain, w_basis_from_augmented
 from neo_ls_svm_torch.ops.cuda.sweep import fused_loo_sweep
+from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 
 # Result keys with one entry per input row (everything else is grid- or basis-sized).
 PER_ROW_KEYS = frozenset({"loo_residuals", "loo_yhat", "loo_leverage", "loo_std", "residuals"})
@@ -173,6 +180,7 @@ def _loo_score(
     return 1.0 - row_sum(s @ (e_raw * e_raw)) / row_sum(s @ ((y - y_mean) * (y - y_mean)))
 
 
+@matmul_precision("ieee")
 def primal_fit(
     X: torch.Tensor,
     M_map: torch.Tensor,
@@ -186,6 +194,7 @@ def primal_fit(
     gamma_chunk: int = 128,
     num_samples: int | None = None,
     row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    sweep_precision: Literal["high", "fast"] = "high",
 ) -> dict[str, torch.Tensor]:
     """Fit the primal LS-SVM in memory and tune γ by closed-form leave-one-out error.
 
@@ -202,7 +211,13 @@ def primal_fit(
     the sweep's sums and the LOO score's moments): the identity here, and a sum across
     ranks when X holds one rank's rows (``parallel/mesh.py::sharded_primal_fit``). The
     per-row outputs are then this rank's rows.
+
+    ``sweep_precision`` controls only the γ-sweep's two contractions, (Gu∘k)·r and
+    (Gu∘Gu)·r: "fast" runs them in one TF32 pass on a CUDA device, as JAX runs them at
+    ``sweep_precision``. The Gram, Gu, WᵀS²y, the optimum's statistics and the Cholesky
+    re-solve stay IEEE float32.
     """
+    check_sweep_precision(sweep_precision)
     n = X.shape[0] if num_samples is None else num_samples
     dtype, device = X.dtype, X.device
     s = sample_weight / row_sum(torch.sum(sample_weight))
@@ -227,8 +242,9 @@ def primal_fit(
     loo_err_parts, obj_parts = [], []
     for start in range(0, gammas.shape[0], gamma_chunk):
         r = 1.0 / (gammas[None, start : start + gamma_chunk] + lam[:, None])  # 2M × chunk
-        num = inv_c0 * (Gu_k @ r)
-        lev = inv_c0 * s2_col * (Gu2 @ r)
+        with matmul_precision(SWEEP_MATMUL[sweep_precision]):
+            num = inv_c0 * (Gu_k @ r)
+            lev = inv_c0 * s2_col * (Gu2 @ r)
         e = (num - y[:, None]) / (1.0 - lev)
         e = _clip_classifier_residuals(e, y, is_classifier)
         loo_err_c, obj_c = _sweep_objective(e, s, is_classifier)
@@ -275,6 +291,7 @@ def primal_fit(
     }
 
 
+@matmul_precision("ieee")
 def primal_decision_function(
     X: torch.Tensor, M_map: torch.Tensor, b_map: torch.Tensor, beta_emb: torch.Tensor
 ) -> torch.Tensor:
@@ -291,6 +308,7 @@ def _variance_from_features(
     return inv_c0 * ((Gu * Gu) @ (1.0 / (gamma + lam)))
 
 
+@matmul_precision("ieee")
 def primal_decision_var(
     X: torch.Tensor,
     M_map: torch.Tensor,
@@ -308,6 +326,7 @@ def primal_decision_var(
     return torch.stack([yhat, _variance_from_features(W, Qs, lam, gamma, inv_c0)], dim=1)
 
 
+@matmul_precision("ieee")
 def primal_predict_var(
     X: torch.Tensor,
     M_map: torch.Tensor,
@@ -321,6 +340,7 @@ def primal_predict_var(
     return _variance_from_features(_features_real_pair(X, M_map, b_map), Qs, lam, gamma, inv_c0)
 
 
+@matmul_precision("ieee")
 def primal_fit_streaming(
     X: torch.Tensor,
     M_map: torch.Tensor,
@@ -334,6 +354,7 @@ def primal_fit_streaming(
     row_chunk: int = 16384,
     num_samples: int | None = None,
     row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    sweep_precision: Literal["high", "fast"] = "high",
 ) -> dict[str, torch.Tensor]:
     """Streaming variant of :func:`primal_fit`: O(row_chunk·2M) device memory.
 
@@ -347,8 +368,10 @@ def primal_fit_streaming(
 
     ``row_sum`` is :func:`primal_fit`'s hook, applied to the weight total, the augmented
     Gram, the γ-sweep's sums and the LOO score's moments
-    (``parallel/mesh.py::sharded_primal_fit_streaming``).
+    (``parallel/mesh.py::sharded_primal_fit_streaming``). ``sweep_precision`` is K2's
+    ``precision`` (its one-pass TF32 path under "fast"); passes 1 and 3 stay IEEE.
     """
+    check_sweep_precision(sweep_precision)
     n_pad = X.shape[0]
     if n_pad % row_chunk:
         msg = f"pad rows to a multiple of row_chunk={row_chunk}, got {n_pad} rows"
@@ -390,6 +413,7 @@ def primal_fit_streaming(
         k,
         is_classifier=is_classifier,
         inv_c0=float(n) * M if C_emb is None else 1.0,
+        precision=sweep_precision,
     )))
     optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
     gamma_opt = gammas[optimum]

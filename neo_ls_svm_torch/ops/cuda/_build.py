@@ -34,9 +34,11 @@ _NVCC_FLAGS = (
 )
 _LIB_NAME = "libneo_ls_svm_kernels.so"
 
-# The two kernel paths of each wrapper, by dtype: float32 runs the 3×TF32 tensor-core
-# kernels (csrc/gram.cu, csrc/sweep.cu), float64 the CUDA-core ones (csrc/*_fp64.cu).
+# The kernel paths of the wrappers: float32 runs the 3×TF32 tensor-core kernels
+# (csrc/gram.cu, csrc/sweep.cu), and K2 under precision="fast" their one-pass variant
+# (csrc/sweep.cu); float64 runs the CUDA-core ones (csrc/*_fp64.cu).
 PATH_TF32 = "3xtf32-wgmma"
+PATH_TF32_1 = "1xtf32-wgmma"
 PATH_FP64 = "fp64-cuda-cores"
 
 _library: ctypes.CDLL | None = None
@@ -52,8 +54,8 @@ _SIGNATURES = {
     "neo_gram_f64": [_P] * 7 + [_I64, _I32, _I32, _I32, _I64, ctypes.c_double, _P],
     "neo_gram_f64_workspace": [_I32, _I32],
     # (X, M, b, y, s, s2, Qs, r_all, k, err, obj, workspace, n, d, D, G, chunk,
-    #  is_classifier, inv_sqrt_d, inv_c0, stream)
-    "neo_sweep_f32": [_P] * 12 + [_I64] + [_I32] * 5 + [ctypes.c_float, ctypes.c_float, _P],
+    #  is_classifier, passes, inv_sqrt_d, inv_c0, stream)
+    "neo_sweep_f32": [_P] * 12 + [_I64] + [_I32] * 6 + [ctypes.c_float, ctypes.c_float, _P],
     # (X, M, b, y, s, s2, Qs, ldq, r_all, ldr, k, err, obj, partials, n, d, D, G, rows,
     #  blocks, is_classifier, inv_sqrt_d, inv_c0, stream)
     "neo_sweep_f64": [_P] * 7 + [_I32, _P, _I32] + [_P] * 4 + [_I64] + [_I32] * 6

@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: precise sincos and 4-wide shared-memory loads for
-// the float64 kernels, and the TF32 hi/lo split of the float32 kernels' 3×TF32 products.
+// the float64 kernels, and the TF32 planes of the float32 kernels' products (hi and lo
+// for 3×TF32, hi alone for one pass).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,11 +31,15 @@ __device__ __forceinline__ float tf32_rna(float v) {
   return __uint_as_float(r);
 }
 
-// Stores v split as hi = tf32(v), lo = tf32(v − hi) (v − hi is exact in f32).
-__device__ __forceinline__ void store_split(float* hi, float* lo, float v) {
+// Stores v in its PLANES TF32 planes, `plane` floats apart: hi = tf32(v) at out, and for
+// two planes (the 3×TF32 products) lo = tf32(v − hi) at out + plane (v − hi is exact in
+// f32). One-pass products read hi alone.
+template <int PLANES>
+__device__ __forceinline__ void store_split(float* out, int64_t plane, float v) {
+  static_assert(PLANES == 1 || PLANES == 2, "hi, or hi and lo");
   const float h = tf32_rna(v);
-  *hi = h;
-  *lo = tf32_rna(v - h);
+  out[0] = h;
+  if constexpr (PLANES == 2) out[plane] = tf32_rna(v - h);
 }
 
 }  // namespace neo

@@ -8,17 +8,20 @@
 // workspace:
 //
 //     U = X·M + b (f32 FMAs), then precise sincosf (no fast math: U reaches tens of
-//     radians), each value v stored as hi = tf32_rna(v), lo = tf32_rna(v − hi),
+//     radians), each value v stored as hi = tf32_rna(v) and, for the 3×TF32 products,
+//     lo = tf32_rna(v − hi),
 //
 // in the layout its product reads, K-major with zero padding to whole tiles (see
-// features.cuh). What bounds it: the bytes it writes, 8 per feature (hi and lo); the
-// sincosf and the phase FMAs cost less. A block owns 32 rows × 32 phases:
+// features.cuh). K2's one-pass path writes the hi plane only; U stays in f32 FMAs there
+// too, where the Pallas kernel under precision=DEFAULT also rounds X·M to one MXU pass.
+// What bounds it: the bytes it writes, 4 per feature and plane; the sincosf and the phase
+// FMAs cost less. A block owns 32 rows × 32 phases:
 // it stages X and M tiles in shared memory, computes the phases, and writes cos and sin
 // through a shared tile so that either layout is written with neighbouring threads on
 // neighbouring addresses. One extra block column writes the 1, y and zero columns.
 //
-// The same file holds the hi/lo split of the resolvent operands (Qs and r_all), which K2
-// needs transposed to K-major: once per call, 1026² and 1026 × G values.
+// The same file holds the split of the resolvent operands (Qs and r_all) into their TF32
+// planes, which K2 needs transposed to K-major: once per call, 1026² and 1026 × G values.
 
 #include "common.cuh"
 #include "features.cuh"
@@ -28,7 +31,7 @@ namespace {
 
 constexpr int kT = 32;  // rows and phases of a feature tile
 
-template <FeatureLayout L>
+template <FeatureLayout L, int PLANES>
 __global__ void __launch_bounds__(kThreads)
     features_kernel(const float* __restrict__ X, const float* __restrict__ Mmap,
                     const float* __restrict__ bmap, const float* __restrict__ s2,
@@ -58,12 +61,12 @@ __global__ void __launch_bounds__(kThreads)
         const int f = 2 * D + e / kT, r = e % kT;
         const float v = f == 2 * D ? scale[r] : (f == 2 * D + 1 ? scale[r] * ys[r] : 0.0f);
         float* o = out + static_cast<int64_t>(f) * ld + rt0 + r;
-        store_split(o, o + plane, v);
+        store_split<PLANES>(o, plane, v);
       } else {  // f = D: 1, f = 2D+1 .. F-1: zeros
         const int r = e / cols, c = e % cols;
         const int f = c == 0 ? D : 2 * D + c;
         float* o = out + static_cast<int64_t>(rt0 + r) * ld + f;
-        store_split(o, o + plane, c == 0 ? scale[r] : 0.0f);
+        store_split<PLANES>(o, plane, c == 0 ? scale[r] : 0.0f);
       }
     }
     return;
@@ -105,21 +108,22 @@ __global__ void __launch_bounds__(kThreads)
       if (q0 + q < D) {
         float* oc = out + static_cast<int64_t>(q0 + q) * ld + rt0 + r;
         float* os = out + static_cast<int64_t>(D + q0 + q) * ld + rt0 + r;
-        store_split(oc, oc + plane, scale[r] * cs[r][q]);
-        store_split(os, os + plane, scale[r] * sn[r][q]);
+        store_split<PLANES>(oc, plane, scale[r] * cs[r][q]);
+        store_split<PLANES>(os, plane, scale[r] * sn[r][q]);
       }
     } else {  // neighbouring threads on neighbouring columns
       const int q = tid % kT, r = tid / kT + 8 * t;
       if (q0 + q < D) {
         float* oc = out + static_cast<int64_t>(rt0 + r) * ld + q0 + q;
         float* os = oc + D + 1;
-        store_split(oc, oc + plane, scale[r] * cs[r][q]);
-        store_split(os, os + plane, scale[r] * sn[r][q]);
+        store_split<PLANES>(oc, plane, scale[r] * cs[r][q]);
+        store_split<PLANES>(os, plane, scale[r] * sn[r][q]);
       }
     }
   }
 }
 
+template <int PLANES>
 __global__ void __launch_bounds__(kThreads)
     split_transpose_kernel(const float* __restrict__ in, int rows, int cols,
                            float* __restrict__ out, int rows_pad, int cols_pad) {
@@ -134,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
     const int a = e / kT, b = e % kT;  // column c0 + a, row r0 + b
     float* o = out + static_cast<int64_t>(c0 + a) * rows_pad + r0 + b;
-    store_split(o, o + plane, t[b][a]);
+    store_split<PLANES>(o, plane, t[b][a]);
   }
 }
 
@@ -142,23 +146,32 @@ __global__ void __launch_bounds__(kThreads)
 
 cudaError_t launch_features(FeatureLayout layout, const float* X, const float* Mmap,
                             const float* bmap, const float* s2, const float* y, float* out,
-                            int64_t plane, int ld, int64_t r0, int64_t n, int rows_pad, int d,
-                            int D, int F, float inv_sqrt_d, cudaStream_t stream) {
+                            int64_t plane, int planes, int ld, int64_t r0, int64_t n,
+                            int rows_pad, int d, int D, int F, float inv_sqrt_d,
+                            cudaStream_t stream) {
   const dim3 grid((D + kT - 1) / kT + 1, rows_pad / kT);
-  if (layout == FeatureLayout::kGramT) {
-    features_kernel<FeatureLayout::kGramT><<<grid, kThreads, 0, stream>>>(
+  if (layout == FeatureLayout::kGramT) {  // K1 has the 3×TF32 path only
+    if (planes != 2) return cudaErrorInvalidValue;
+    features_kernel<FeatureLayout::kGramT, 2><<<grid, kThreads, 0, stream>>>(
+        X, Mmap, bmap, s2, y, out, plane, ld, r0, n, d, D, F, inv_sqrt_d);
+  } else if (planes == 2) {
+    features_kernel<FeatureLayout::kSweepW, 2><<<grid, kThreads, 0, stream>>>(
         X, Mmap, bmap, s2, y, out, plane, ld, r0, n, d, D, F, inv_sqrt_d);
   } else {
-    features_kernel<FeatureLayout::kSweepW><<<grid, kThreads, 0, stream>>>(
+    features_kernel<FeatureLayout::kSweepW, 1><<<grid, kThreads, 0, stream>>>(
         X, Mmap, bmap, s2, y, out, plane, ld, r0, n, d, D, F, inv_sqrt_d);
   }
   return cudaGetLastError();
 }
 
 cudaError_t launch_split_transpose(const float* in, int rows, int cols, float* out,
-                                   int rows_pad, int cols_pad, cudaStream_t stream) {
-  split_transpose_kernel<<<dim3(cols_pad / kT, rows_pad / kT), kThreads, 0, stream>>>(
-      in, rows, cols, out, rows_pad, cols_pad);
+                                   int rows_pad, int cols_pad, int planes, cudaStream_t stream) {
+  const dim3 grid(cols_pad / kT, rows_pad / kT);
+  if (planes == 2) {
+    split_transpose_kernel<2><<<grid, kThreads, 0, stream>>>(in, rows, cols, out, rows_pad, cols_pad);
+  } else {
+    split_transpose_kernel<1><<<grid, kThreads, 0, stream>>>(in, rows, cols, out, rows_pad, cols_pad);
+  }
   return cudaGetLastError();
 }
 

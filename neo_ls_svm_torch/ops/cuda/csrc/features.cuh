@@ -1,5 +1,6 @@
 // The feature build of K1 and K2's f32 paths (features.cu), written once per element into
-// a device workspace already split into TF32 hi and lo planes for the 3×TF32 products.
+// a device workspace already split into TF32 planes: hi and lo for the 3×TF32 products,
+// hi alone for K2's one-pass products.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,16 +17,18 @@ enum class FeatureLayout {
 };
 
 // Builds rows r0 .. r0+rows_pad-1 of the chunk (zero past n) at leading dimension ld, and
-// every padding column up to F, into out (hi plane) and out + plane (lo plane).
-// rows_pad is a multiple of 32.
+// every padding column up to F, into out (hi plane) and, for planes == 2, out + plane (lo
+// plane). rows_pad is a multiple of 32.
 cudaError_t launch_features(FeatureLayout layout, const float* X, const float* Mmap,
                             const float* bmap, const float* s2, const float* y, float* out,
-                            int64_t plane, int ld, int64_t r0, int64_t n, int rows_pad, int d,
-                            int D, int F, float inv_sqrt_d, cudaStream_t stream);
+                            int64_t plane, int planes, int ld, int64_t r0, int64_t n,
+                            int rows_pad, int d, int D, int F, float inv_sqrt_d,
+                            cudaStream_t stream);
 
 // out[plane][c][r] = split(in[r][c]) for the rows × cols row-major matrix in, zero up to
-// cols_pad × rows_pad (both multiples of 32): the B operand of a product against in.
+// cols_pad × rows_pad (both multiples of 32), in `planes` TF32 planes: the B operand of a
+// product against in.
 cudaError_t launch_split_transpose(const float* in, int rows, int cols, float* out,
-                                   int rows_pad, int cols_pad, cudaStream_t stream);
+                                   int rows_pad, int cols_pad, int planes, cudaStream_t stream);
 
 }  // namespace neo

@@ -121,8 +121,8 @@ int neo_gram_f32(const void* X, const void* Mmap, const void* bmap, const void* 
     status = neo::launch_features(neo::FeatureLayout::kGramT, Xf, static_cast<const float*>(Mmap),
                                   static_cast<const float*>(bmap), static_cast<const float*>(s2),
                                   static_cast<const float*>(y), feat,
-                                  static_cast<int64_t>(F) * chunk, chunk, r0, n, rows_pad, d, D,
-                                  F, inv_sqrt_d, st);
+                                  static_cast<int64_t>(F) * chunk, 2, chunk, r0, n, rows_pad, d,
+                                  D, F, inv_sqrt_d, st);
     if (status != cudaSuccess) return status;
     gram_tiles_kernel<<<splits * ntiles, kThreads, smem, st>>>(tmY, slots, nt, kb_per_split,
                                                                 rows_pad / kBK, r0 > 0);

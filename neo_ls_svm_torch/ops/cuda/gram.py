@@ -15,6 +15,7 @@ import math
 import torch
 
 from neo_ls_svm_torch.ops.cuda._build import PATH_FP64, PATH_TF32, check_operands, check_status, load_library
+from neo_ls_svm_torch.utils.precision import matmul_precision
 
 launches = 0  # Kernel launches of fused_augmented_gram (its plain version is not counted).
 path_launches = {PATH_TF32: 0, PATH_FP64: 0}  # the same launches, by kernel path
@@ -49,6 +50,7 @@ def gram_plan(n: int, D: int) -> dict[str, int]:
     return {"chunk": chunk, "splits": splits, "kb_per_split": kb_per_split, "workspace_bytes": 4 * floats}
 
 
+@matmul_precision("ieee")
 def gram_plain(
     X: torch.Tensor,
     M_map: torch.Tensor,
@@ -61,7 +63,8 @@ def gram_plain(
     """Plain PyTorch version of the kernel, in the same [cos | sin | 1 | y] order.
 
     Mirrors ``augmented_gram_reference`` of the JAX package, summed over row chunks so
-    its memory stays O(chunk_rows·(2D+2)).
+    its memory stays O(chunk_rows·(2D+2)). Its products are IEEE float32 (HIGHEST), as
+    every dot of the Pallas kernel.
     """
     D = M_map.shape[1]
     K = 2 * D + 2

@@ -5,16 +5,32 @@
 the hand-written kernel of ``csrc/sweep.cu`` (the port of
 ``neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep``); on a CPU tensor it runs
 :func:`sweep_plain`. There is no fallback from one to the other.
+
+``precision`` mirrors the Pallas kernel's ``mxu_precision``: ``"high"`` (HIGHEST) runs
+float32 in 3×TF32, ``"fast"`` (DEFAULT) in one TF32 pass, each counted under its own path.
+Float64 has no TF32 and runs the CUDA-core kernel under either, as JAX's DEFAULT is exact
+in float64 off the TPU.
 """
 
 import math
+from typing import Literal
 
 import torch
 
-from neo_ls_svm_torch.ops.cuda._build import PATH_FP64, PATH_TF32, check_operands, check_status, load_library
+from neo_ls_svm_torch.ops.cuda._build import (
+    PATH_FP64,
+    PATH_TF32,
+    PATH_TF32_1,
+    check_operands,
+    check_status,
+    load_library,
+)
+from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 
 launches = 0  # Kernel launches of fused_loo_sweep (its plain version is not counted).
-path_launches = {PATH_TF32: 0, PATH_FP64: 0}  # the same launches, by kernel path
+path_launches = {PATH_TF32: 0, PATH_TF32_1: 0, PATH_FP64: 0}  # the same launches, by kernel path
+# TF32 passes of each float32 product, by precision.
+_PASSES = {"high": 3, "fast": 1}
 
 _TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh
 _KBLOCK = 32  # kBK in csrc/gemm_sm90.cuh
@@ -27,18 +43,20 @@ _THREADS = 256  # kThreads in csrc/common.cuh
 _F64_ROW_CHOICES = (8, 4, 2)  # rows per group of csrc/sweep_fp64.cu, widest first
 
 
-def sweep_plan(n: int, D: int, G: int) -> dict[str, int]:
+def sweep_plan(n: int, D: int, G: int, precision: Literal["high", "fast"] = "high") -> dict[str, int]:
     """The float32 kernels' row chunk and workspace for n rows, D features and G values of γ.
 
-    The workspace holds the chunk's W (hi, lo) and Gu∘k, Gu∘Gu (hi, lo), Qsᵀ and r_allᵀ
-    (hi, lo) and the chunk's row-tile partials: it is bounded by the chunk, not by n.
+    The workspace holds the chunk's W and Gu∘k, Gu∘Gu, Qsᵀ and r_allᵀ, each in its TF32
+    planes (hi and lo under "high", hi alone under "fast"), and the chunk's row-tile
+    partials: it is bounded by the chunk, not by n.
     """
+    planes = 2 if _PASSES[precision] == 3 else 1
     M2 = 2 * D + 2
     Kp = -(-M2 // _KBLOCK) * _KBLOCK
     Np = -(-M2 // _TILE) * _TILE
     Gp = -(-G // _TILE) * _TILE
     chunk = min(_CHUNK_ROWS, -(-max(n, 1) // _TILE) * _TILE)
-    floats = 6 * chunk * Kp + 2 * Np * Kp + 2 * Gp * Kp + 2 * (chunk // _TILE) * Gp
+    floats = planes * (3 * chunk * Kp + Np * Kp + Gp * Kp) + 2 * (chunk // _TILE) * Gp
     return {"chunk": chunk, "workspace_bytes": 4 * floats}
 
 
@@ -49,6 +67,7 @@ def _pad_columns(a: torch.Tensor) -> tuple[torch.Tensor, int]:
     return (torch.nn.functional.pad(a, (0, pad)) if pad else a), a.shape[1] + pad
 
 
+@matmul_precision("ieee")
 def sweep_plain(
     X: torch.Tensor,
     M_map: torch.Tensor,
@@ -63,9 +82,15 @@ def sweep_plain(
     is_classifier: bool,
     inv_c0: float,
     chunk_rows: int = 16384,
+    precision: Literal["high", "fast"] = "high",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the JAX package's eager sweep
-    (``models/primal.py`` streaming pass 2), summed over row chunks."""
+    (``models/primal.py`` streaming pass 2), summed over row chunks.
+
+    U = X·M + b runs in IEEE float32 under either precision, as in the kernel; Gu, num
+    and lev run in IEEE under "high" and in one TF32 pass under "fast" (on a CUDA tensor:
+    on the CPU every product is IEEE)."""
+    check_sweep_precision(precision)
     D = M_map.shape[1]
     dtype, device = X.dtype, X.device
     inv_sqrt_D = 1.0 / torch.sqrt(torch.tensor(D, dtype=dtype, device=device))
@@ -77,9 +102,10 @@ def sweep_plain(
         U = X[rows] @ M_map + b_map.reshape(1, -1)
         ones = torch.ones((U.shape[0], 1), dtype=dtype, device=device)
         W = torch.cat([torch.cos(U) * inv_sqrt_D, ones, torch.sin(U) * inv_sqrt_D, 0 * ones], dim=1)
-        Gu = W @ Qs
-        num = inv_c0 * ((Gu * k[None, :]) @ r_all)
-        lev = inv_c0 * s2[rows, None] * ((Gu * Gu) @ r_all)
+        with matmul_precision(SWEEP_MATMUL[precision]):
+            Gu = W @ Qs
+            num = inv_c0 * ((Gu * k[None, :]) @ r_all)
+            lev = inv_c0 * s2[rows, None] * ((Gu * Gu) @ r_all)
         y_b = y[rows, None]
         e = (num - y_b) / (1.0 - lev)
         if is_classifier:
@@ -108,16 +134,20 @@ def fused_loo_sweep(
     *,
     is_classifier: bool,
     inv_c0: float,
+    precision: Literal["high", "fast"] = "high",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Return (loo_errors, objective), each of shape (G,), summed over all rows.
 
     ``Qs`` is the sign-folded (2M, 2M) eigenbasis, ``r_all`` the (2M, G) resolvent
     columns 1/(γ+λ), ``k`` = Qsᵀ·WᵀS²y, and ``inv_c0`` the resolvent scale 1/c₀.
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs :func:`sweep_plain`.
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs :func:`sweep_plain`,
+    in IEEE under either ``precision``.
     """
+    check_sweep_precision(precision)
     if X.device.type == "cpu":
         return sweep_plain(
-            X, M_map, b_map, y, s, s2, Qs, r_all, k, is_classifier=is_classifier, inv_c0=inv_c0
+            X, M_map, b_map, y, s, s2, Qs, r_all, k, is_classifier=is_classifier, inv_c0=inv_c0,
+            precision=precision,
         )
     b_vec = b_map.reshape(-1)
     check_operands(X, M_map=M_map, b_map=b_vec, y=y, s=s, s2=s2, Qs=Qs, r_all=r_all, k=k)
@@ -145,11 +175,12 @@ def fused_loo_sweep(
     stream = torch.cuda.current_stream(X.device).cuda_stream
     inv_sqrt_d = 1.0 / math.sqrt(D)
     if X.dtype == torch.float32:
-        plan = sweep_plan(n, D, G)
+        plan = sweep_plan(n, D, G, precision)
         workspace = torch.empty(plan["workspace_bytes"] // 4, dtype=X.dtype, device=X.device)
         operands = (Qs.data_ptr(), r_all.data_ptr(), k.data_ptr(), loo_err.data_ptr(), objective.data_ptr())
-        args = (*operands, workspace.data_ptr(), n, d, D, G, plan["chunk"], int(is_classifier))
+        args = (*operands, workspace.data_ptr(), n, d, D, G, plan["chunk"], int(is_classifier), _PASSES[precision])
         entry = lib.neo_sweep_f32
+        path = PATH_TF32 if precision == "high" else PATH_TF32_1
     else:
         fits = [r for r in _F64_ROW_CHOICES if lib.neo_sweep_f64_smem_bytes(D, r) <= _SMEM_PER_BLOCK]
         rows = fits[0] if fits else None
@@ -167,6 +198,7 @@ def fused_loo_sweep(
         operands += (loo_err.data_ptr(), objective.data_ptr(), partials.data_ptr())
         args = (*operands, n, d, D, G, rows, blocks, int(is_classifier))
         entry = lib.neo_sweep_f64
+        path = PATH_FP64
     with torch.cuda.device(X.device):
         status = entry(
             X.data_ptr(),
@@ -183,5 +215,5 @@ def fused_loo_sweep(
     check_status(lib, status, "fused_loo_sweep")
     global launches
     launches += 1
-    path_launches[PATH_TF32 if X.dtype == torch.float32 else PATH_FP64] += 1
+    path_launches[path] += 1
     return loo_err, objective

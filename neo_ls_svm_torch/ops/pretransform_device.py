@@ -23,6 +23,8 @@ bit-parity path (statistically equivalent):
   is how the tests hold this module against the JAX one.
 - **Ties/summation order**: medians come from the sort-free bisection of
   :func:`~neo_ls_svm_torch.ops.affine.grouped_weighted_median`.
+
+Its float32 products are IEEE float32 whatever the caller set (``utils/precision.py``).
 """
 
 from typing import Any
@@ -32,6 +34,7 @@ import torch
 
 from neo_ls_svm_torch.ops.affine import _normalizer_stats_device
 from neo_ls_svm_torch.ops.weighted_quantile import weighted_quantile_torch
+from neo_ls_svm_torch.utils.precision import matmul_precision
 
 DEVICE_PRETRANSFORM_BINS = 8  # Equal-mass target bins for regression (see module doc).
 
@@ -74,6 +77,7 @@ def _sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (A * A).sum(dim=1, keepdim=True) - 2.0 * A @ B.T + (B * B).sum(dim=1, keepdim=True).T
 
 
+@matmul_precision("ieee")
 def device_pre_transform(
     X: torch.Tensor,  # (n_pad, d) feature rows; padding rows have weight 0
     y: torch.Tensor,  # (n_pad,) targets (±1 for classifiers)
@@ -103,7 +107,8 @@ def device_pre_transform(
     ``"Z"`` (num_bins·d, D) standard normals, and ``"chi"`` (1, D) χ² variates, with ess
     the classifier-adjusted edge sample size.
 
-    Every product here must run in IEEE arithmetic (TF32 off for float32).
+    Every product here must run in IEEE arithmetic, and does: the function runs inside
+    ``matmul_precision("ieee")`` whatever the caller set.
     """
     d = X.shape[1]
     dtype, dev = X.dtype, X.device

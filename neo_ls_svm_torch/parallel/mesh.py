@@ -23,11 +23,15 @@ before the nonlinear LOO step (the fused kernels hide those partials).
 
 Every rank passes the full X (a host array, or a tensor on its own device) and receives
 the full result: this is the contract of the JAX package's multi-process fit.
+
+The fits run their float32 products in IEEE float32 whatever the caller set, and
+``sweep_precision="fast"`` runs the γ-sweep's products only in one TF32 pass, as in
+``models/primal.py`` (``utils/precision.py``).
 """
 
 import math
 from functools import partial
-from typing import Any
+from typing import Any, Literal
 
 import numpy as np
 import numpy.typing as npt
@@ -52,6 +56,7 @@ from neo_ls_svm_torch.models.primal import (
 from neo_ls_svm_torch.ops.pretransform_device import device_pre_transform
 from neo_ls_svm_torch.parallel import collectives
 from neo_ls_svm_torch.utils.device import require_device, to_device, torch_dtype
+from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 
 AXES = ("data", "feature")
 
@@ -155,6 +160,7 @@ def _whole_rows(result: dict[str, torch.Tensor], data: Any, n: int) -> dict[str,
     }
 
 
+@matmul_precision("ieee")
 def sharded_primal_fit(
     mesh: DeviceMesh,
     X: Operand,
@@ -168,6 +174,7 @@ def sharded_primal_fit(
     is_classifier: bool,
     gamma_chunk: int = 128,
     num_samples: int | None = None,
+    sweep_precision: Literal["high", "fast"] = "high",
 ) -> dict[str, torch.Tensor]:
     """``primal_fit`` on this rank's rows, its sums over rows completed over ``data``.
 
@@ -194,10 +201,12 @@ def sharded_primal_fit(
         gamma_chunk=gamma_chunk,
         num_samples=n,
         row_sum=partial(collectives.sum_over, group=data),
+        sweep_precision=sweep_precision,
     )
     return _whole_rows(result, data, n)
 
 
+@matmul_precision("ieee")
 def sharded_primal_fit_streaming(
     mesh: DeviceMesh,
     X: Operand,
@@ -211,6 +220,7 @@ def sharded_primal_fit_streaming(
     is_classifier: bool,
     row_chunk: int = 16384,
     num_samples: int | None = None,
+    sweep_precision: Literal["high", "fast"] = "high",
 ) -> dict[str, torch.Tensor]:
     """Row-sharded *streaming* primal fit: O(row_chunk·2M) memory per rank.
 
@@ -220,8 +230,10 @@ def sharded_primal_fit_streaming(
     a custom C takes ``gram_plain``), pass 2 is K2 on them; on CPU tensors both run their
     plain versions. With ``num_feature > 1`` the three passes run in plain torch on
     column blocks, with two sums over ``feature`` per row chunk in passes 2 and 3. The
-    per-row outputs come back whole.
+    per-row outputs come back whole. ``sweep_precision`` reaches K2, or, on the feature
+    axis, pass 2's three products (Gu, num and lev; X·M stays IEEE, as in JAX).
     """
+    check_sweep_precision(sweep_precision)
     n = num_samples if num_samples is not None else X.shape[0]
     num_data = axis_size(mesh, "data")
     data = mesh.get_group("data")
@@ -244,6 +256,7 @@ def sharded_primal_fit_streaming(
             row_chunk=row_chunk,
             num_samples=n,
             row_sum=row_sum,
+            sweep_precision=sweep_precision,
         )
         return _whole_rows(result, data, n)
 
@@ -291,9 +304,12 @@ def sharded_primal_fit_streaming(
     loo_err_l = torch.zeros(g_d.shape[0], dtype=dtype, device=device)
     obj_l = torch.zeros_like(loo_err_l)
     for rows in chunks:
-        Gu_b = _features_real_pair(X_l[rows], M_d, b_d) @ Qs_loc
-        num = feature_sum(inv_c0 * ((Gu_b * k_loc[None, :]) @ r_loc))
-        lev = feature_sum(inv_c0 * s2_l[rows, None] * ((Gu_b * Gu_b) @ r_loc))
+        W_b = _features_real_pair(X_l[rows], M_d, b_d)
+        with matmul_precision(SWEEP_MATMUL[sweep_precision]):
+            Gu_b = W_b @ Qs_loc
+            num = inv_c0 * ((Gu_b * k_loc[None, :]) @ r_loc)
+            lev = inv_c0 * s2_l[rows, None] * ((Gu_b * Gu_b) @ r_loc)
+        num, lev = feature_sum(num), feature_sum(lev)
         e = _clip_classifier_residuals((num - y_l[rows, None]) / (1.0 - lev), y_l[rows], is_classifier)
         loo_err_b, obj_b = _sweep_objective(e, s_l[rows], is_classifier)
         loo_err_l += loo_err_b
@@ -341,6 +357,7 @@ def sharded_primal_fit_streaming(
 _PT_KEYS = ("M", "b", "pt_shift", "pt_scale", "pt_A", "pt_Z", "pt_folded")
 
 
+@matmul_precision("ieee")
 def sharded_primal_fit_device_pt(
     mesh: DeviceMesh,
     X: Operand,
@@ -358,6 +375,7 @@ def sharded_primal_fit_device_pt(
     orthogonal: bool,
     stream: bool,
     row_chunk: int = 16384,
+    sweep_precision: Literal["high", "fast"] = "high",
 ) -> dict[str, torch.Tensor]:
     """Mesh fit with the on-device pre-transform.
 
@@ -402,10 +420,9 @@ def sharded_primal_fit_device_pt(
         pt = {key: torch.empty(shapes[key], dtype=dtype, device=device) for key in _PT_KEYS}
     pt = {key: collectives.broadcast_from_first(pt[key], None) for key in _PT_KEYS}
     operands = (mesh, X, pt["M"], pt["b"], y, sample_weight, gammas, None)
+    kw = {"is_classifier": is_classifier, "num_samples": X.shape[0], "sweep_precision": sweep_precision}
     if stream:
-        result = sharded_primal_fit_streaming(
-            *operands, is_classifier=is_classifier, row_chunk=row_chunk, num_samples=X.shape[0]
-        )
+        result = sharded_primal_fit_streaming(*operands, row_chunk=row_chunk, **kw)
     else:
-        result = sharded_primal_fit(*operands, is_classifier=is_classifier, num_samples=X.shape[0])
+        result = sharded_primal_fit(*operands, **kw)
     return {**result, "pt_M": pt["M"], "pt_b": pt["b"], **{k: pt[k] for k in _PT_KEYS[2:]}}

@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.multiprocessing as mp
+from torch.overrides import TorchFunctionMode
 
 # One worker process per rank, several test files at once under xdist: keep each rank to
 # one thread so that the ranks do not starve each other.
@@ -66,6 +67,42 @@ def _arrays(result: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in result.items()}
 
 
+class _TF32Products(TorchFunctionMode):
+    """Records the operand shapes of every matrix product that runs while the CUDA fp32
+    precision is "tf32" (the port's scope of precision="fast")."""
+
+    PRODUCTS = (torch.matmul, torch.Tensor.__matmul__, torch.Tensor.__rmatmul__, torch.Tensor.matmul, torch.mm)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.seen: list[tuple] = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.PRODUCTS and torch.backends.cuda.matmul.fp32_precision == "tf32":
+            self.seen.append((tuple(args[0].shape), tuple(args[1].shape)))
+        return func(*args, **(kwargs or {}))
+
+
+def _recording(run: Any) -> dict[str, Any]:
+    """``run()`` with its TF32 products recorded, and the ``precision`` each K2 call of
+    the streaming solver was given."""
+    from neo_ls_svm_torch.models import primal  # noqa: PLC0415
+
+    precisions, real = [], primal.fused_loo_sweep
+
+    def sweep(*args: Any, **kwargs: Any) -> Any:
+        precisions.append(kwargs["precision"])
+        return real(*args, **kwargs)
+
+    primal.fused_loo_sweep = sweep
+    try:
+        with _TF32Products() as products:
+            out = run()
+    finally:
+        primal.fused_loo_sweep = real
+    return {"out": out, "tf32_products": products.seen, "sweep_precisions": precisions}
+
+
 def _sharded(mesh: Any, case: dict[str, Any]) -> dict[str, np.ndarray]:
     from neo_ls_svm_torch.parallel.mesh import (  # noqa: PLC0415
         sharded_primal_fit,
@@ -73,7 +110,7 @@ def _sharded(mesh: Any, case: dict[str, Any]) -> dict[str, np.ndarray]:
     )
 
     operands = [case[k] for k in ("X", "M", "b", "y", "s", "gammas")]
-    kwargs = {"is_classifier": case.get("is_classifier", False)}
+    kwargs = {"is_classifier": case.get("is_classifier", False), "sweep_precision": case.get("sweep_precision", "high")}
     if case["route"] == "streaming":
         return _arrays(
             sharded_primal_fit_streaming(mesh, *operands, case.get("C"), row_chunk=case["row_chunk"], **kwargs)
@@ -107,6 +144,12 @@ def _spied_streaming(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
     return {"result": result, "feature_sums": sums, "column_gathers": gathers}
 
 
+def _precision_spied(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
+    """A sharded fit with its TF32 products and K2 precisions recorded."""
+    recorded = _recording(lambda: _sharded(mesh, case))
+    return {"result": recorded.pop("out"), **recorded}
+
+
 def _estimator(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
     """A ``NeoLSSVM`` fit on the CPU with this mesh (or none), its fitted state and its
     predictions on the first 100 rows; on rank 0 also its conformal answers, its pickle
@@ -122,8 +165,13 @@ def _estimator(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
         params["mesh"] = mesh
     saved = est.STREAMING_BYTES_THRESHOLD
     est.STREAMING_BYTES_THRESHOLD = case.get("streaming_bytes_threshold", saved)
+    recorded: dict[str, Any] = {}
     try:
-        model = NeoLSSVM(**params).fit(X, y)
+        if case.get("record"):
+            recorded = _recording(lambda: NeoLSSVM(**params).fit(X, y))
+            model = recorded.pop("out")
+        else:
+            model = NeoLSSVM(**params).fit(X, y)
     except ValueError as error:
         if case.get("expect_error"):
             return {"error": str(error)}
@@ -143,6 +191,7 @@ def _estimator(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
         "b_map": model._b_map,
         "predict": model.predict(head),
         "predict_std": model.predict_std(head),
+        **recorded,
     }
     if dist.get_rank() != 0:  # serving is local: rank 0 stands for every rank
         return out
@@ -166,7 +215,7 @@ def mesh_scenarios(rank: int, world: int, workdir: Path, shape: tuple[int, int],
 
     _join_group(rank, world, workdir)
     mesh = make_mesh(*shape, device_type="cpu")
-    runners = {"sharded": _sharded, "spied": _spied_streaming, "estimator": _estimator}
+    runners = {"sharded": _sharded, "spied": _spied_streaming, "precision_spied": _precision_spied, "estimator": _estimator}
     results = {name: runners[case["kind"]](mesh, case) for name, case in cases.items()}
     results["mesh_reused"] = make_mesh(*shape, device_type="cpu") is mesh
     _write(workdir, rank, results)

@@ -7,8 +7,11 @@ CPU tensors the wrappers must take the plain version and launch nothing. (The CU
 kernels themselves run only on the card: ``chip_smoke.py`` holds them against these
 plain versions there.) A torch emulation of the kernels' 3×TF32 products, with the same
 hi/lo split and k-blocks, is held against the plain versions in float64 under
-``chip_smoke.py``'s f32 limits, and one-pass TF32 must break them. The kernels' chunk
-plans must keep their workspace independent of n.
+``chip_smoke.py``'s f32 limits, and one-pass TF32 must break them. The same emulation with
+one pass (K2's ``precision="fast"`` path) is held to ``chip_smoke.py``'s one-pass limits,
+and must stay at least 10× further from float64 than three passes. A CPU tensor runs the
+plain version in IEEE under either precision. The kernels' chunk plans must keep their
+workspace independent of n.
 """
 
 import jax.numpy as jnp
@@ -188,10 +191,10 @@ def test_3xtf32_gram_keeps_the_f32_limit_and_one_pass_breaks_it(passes: int, wit
     assert (err <= GRAM_TOL_F32) == within_limit, err
 
 
-@pytest.mark.parametrize("task", ["regression", "classification"])
-def test_3xtf32_sweep_keeps_the_f32_limit_and_the_argmin(task: str) -> None:
-    is_classifier = task == "classification"
-    n = 2048
+def _sweep_emulated(is_classifier: bool, passes: int, n: int = 2048) -> tuple:
+    """K2's float32 path on seed-86 operands: W, Gu = W·Qs, then num and lev against
+    r_all, each product in ``passes`` TF32 passes. Returns (err, obj) and the float64
+    plain version's (err, obj)."""
     ops = _operands(86, classifier=is_classifier, n=n)
     sw = _sweep_operands(ops, n=n)
     t64 = {k: _t(v) for k, v in {**ops, **{k: sw[k] for k in ("Qs", "r_all", "k")}}.items()}
@@ -200,13 +203,12 @@ def test_3xtf32_sweep_keeps_the_f32_limit_and_the_argmin(task: str) -> None:
     ref_err, ref_obj = tsweep.sweep_plain(
         *(t64[k] for k in names), is_classifier=is_classifier, inv_c0=sw["inv_c0"]
     )
-    # K2's float32 path: W, Gu = W·Qs, then num and lev against r_all, all in 3×TF32.
     cos, sin = _features32(t32)
     ones = torch.ones((n, 1))
     W = torch.cat([cos, ones, sin, 0 * ones], dim=1)
-    Gu = _product(W, t32["Qs"])
-    num = sw["inv_c0"] * _product(Gu * t32["k"][None, :], t32["r_all"])
-    lev = sw["inv_c0"] * t32["s2"][:, None] * _product(Gu * Gu, t32["r_all"])
+    Gu = _product(W, t32["Qs"], passes)
+    num = sw["inv_c0"] * _product(Gu * t32["k"][None, :], t32["r_all"], passes)
+    lev = sw["inv_c0"] * t32["s2"][:, None] * _product(Gu * Gu, t32["r_all"], passes)
     y = t32["y"][:, None]
     e = (num - y) / (1.0 - lev)
     if is_classifier:
@@ -216,6 +218,17 @@ def test_3xtf32_sweep_keeps_the_f32_limit_and_the_argmin(task: str) -> None:
     obj = err
     if is_classifier:
         obj = obj + t32["s"] @ (abs_e >= 1).float() + t32["s"] @ torch.clamp(abs_e - 1, min=0.0)
+    return err, obj, ref_err, ref_obj
+
+
+def _max_rel(ours: torch.Tensor, ref: torch.Tensor) -> float:
+    return float(((ours.double() - ref).abs() / ref.abs()).max())
+
+
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_3xtf32_sweep_keeps_the_f32_limit_and_the_argmin(task: str) -> None:
+    # K2's float32 path, every product in 3×TF32.
+    err, obj, ref_err, ref_obj = _sweep_emulated(task == "classification", passes=3)
     for ours, ref in ((err, ref_err), (obj, ref_obj)):
         rel = float(((ours.double() - ref).abs() / ref.abs()).max())
         assert rel <= SWEEP_TOL_F32, rel
@@ -224,6 +237,57 @@ def test_3xtf32_sweep_keeps_the_f32_limit_and_the_argmin(task: str) -> None:
     # 4e-9 over its first γ values, below f32's resolution, so the index itself may move.)
     p_min = float(ref_obj.min())
     assert abs(float(ref_obj[int(torch.argmin(obj))]) - p_min) <= 1e-5 * abs(p_min)
+
+
+# chip_smoke.py's limits of K2's one-pass path against float64: the LOO error (relative,
+# 2.5× this emulation's worst at n = 2048), a regressor's objective, and the float64
+# objective at the one-pass argmin against its minimum. A classifier's objective adds
+# s·[|e| ≥ 1], whose step one pass flips on the rows near |e| = 1: it is held by its argmin.
+SWEEP_TOL_ONE_PASS, SWEEP_OBJ_TOL_ONE_PASS, ARGMIN_GAP_ONE_PASS = 2e-4, 1e-4, 1e-3
+
+
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_one_pass_tf32_sweep_keeps_the_fast_limits(task: str) -> None:
+    is_classifier = task == "classification"
+    err, obj, ref_err, ref_obj = _sweep_emulated(is_classifier, passes=1)
+    err_rel = _max_rel(err, ref_err)
+    assert err_rel <= SWEEP_TOL_ONE_PASS, err_rel
+    if not is_classifier:
+        assert _max_rel(obj, ref_obj) <= SWEEP_OBJ_TOL_ONE_PASS
+    p_min = float(ref_obj.min())
+    gap = abs(float(ref_obj[int(torch.argmin(obj))]) - p_min) / abs(p_min)
+    assert gap <= ARGMIN_GAP_ONE_PASS, gap
+    # A path that quietly ran three passes would be this close to float64: one pass must
+    # be at least 10× further.
+    err3 = _sweep_emulated(is_classifier, passes=3)[0]
+    assert err_rel >= 10 * _max_rel(err3, ref_err), (err_rel, _max_rel(err3, ref_err))
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+def test_cpu_sweep_is_ieee_under_either_precision(precision: str, monkeypatch) -> None:
+    """A CPU tensor runs the plain version in IEEE under "fast" too (bit-equal to "high"),
+    and launches nothing."""
+    monkeypatch.setattr(tsweep, "launches", 0)
+    ops64 = _operands(87)
+    sw = _sweep_operands(ops64)
+    args = [_t(ops64[k]).float() for k in ("X", "M_map", "b_map", "y", "s", "s2")]
+    args += [_t(sw[k]).float() for k in ("Qs", "r_all", "k")]
+    kwargs = {"is_classifier": False, "inv_c0": sw["inv_c0"]}
+    ours = tsweep.fused_loo_sweep(*args, **kwargs, precision=precision)
+    for a, b in zip(ours, tsweep.sweep_plain(*args, **kwargs)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert tsweep.launches == 0
+    with pytest.raises(ValueError, match="sweep_precision"):
+        tsweep.fused_loo_sweep(*args, **kwargs, precision="highest")
+
+
+def test_one_pass_workspace_holds_one_plane() -> None:
+    """Under "fast" the sweep's workspace holds the hi planes only: the same row chunk
+    and a little over half the bytes (the row-tile partials are not planes)."""
+    high, fast = tsweep.sweep_plan(2**20, 512, 1024), tsweep.sweep_plan(2**20, 512, 1024, "fast")
+    assert fast["chunk"] == high["chunk"]
+    assert high["workspace_bytes"] / 2 < fast["workspace_bytes"] < 0.51 * high["workspace_bytes"]
+    assert tsweep.sweep_plan(2**14, 512, 1024, "fast") == fast
 
 
 @pytest.mark.parametrize("kernel", ["gram", "sweep"])

@@ -8,6 +8,9 @@ float64, and are held to ``tests/test_sharding.py``'s own tolerances: the in-mem
 rtol 1e-7 (γ at rel 1e-12), the streaming fit at rtol 1e-6, atol 1e-12 (its LOO score at
 rel 1e-9). On the CPU the port's streaming fit runs K1 and K2 through their plain
 versions; the JAX side runs its Pallas kernels in interpret mode for that comparison.
+Under ``precision="fast"`` the ranks record which products run under TF32 and which
+``precision`` K2 is given: every mesh route must carry it, and only the sweep's products
+may enter the TF32 scope (on the CPU the fit then equals the "high" fit bit for bit).
 """
 
 import pickle
@@ -101,6 +104,13 @@ def cases_41() -> dict:
         "device_pt_streaming": _estimator_case(
             1500, 45, params={"pre_transform": "device"}, streaming_bytes_threshold=1
         ),
+        "estimator_fast": _estimator_case(1500, 42, params={"precision": "fast"}, record=True),
+        "estimator_streaming_fast": _estimator_case(
+            1500, 44, params={"precision": "fast"}, streaming_bytes_threshold=1, record=True
+        ),
+        "device_pt_streaming_fast": _estimator_case(
+            1500, 45, params={"pre_transform": "device", "precision": "fast"}, streaming_bytes_threshold=1, record=True
+        ),
     }
 
 
@@ -122,7 +132,8 @@ def ranks_22(cases_22, tmp_path_factory) -> list[dict]:
 @pytest.fixture(scope="module")
 def cases_14() -> dict:
     spied = {**_sharded_case("streaming", 1504, 47), "kind": "spied", "row_chunk": 94}
-    return {"streaming": _sharded_case("streaming", 1500, 43), "spied": spied}
+    spied_fast = {**spied, "kind": "precision_spied", "sweep_precision": "fast"}
+    return {"streaming": _sharded_case("streaming", 1500, 43), "spied": spied, "spied_fast": spied_fast}
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +217,48 @@ def test_feature_axis_partitions_the_contractions(cases_14, ranks_14) -> None:
     assert float(spied["result"]["gamma"]) == pytest.approx(float(single["gamma"]), rel=1e-12)
     for key in COMPARED:
         np.testing.assert_allclose(spied["result"][key], single[key], err_msg=key, **STREAMING)
+
+
+def test_feature_axis_runs_only_its_sweep_products_in_tf32(ranks_14) -> None:
+    """Under sweep_precision="fast" the feature-axis pass 2 runs Gu_b, num and lev under
+    TF32 in every row chunk, on this rank's 33 eigenvector columns (X·M and every other
+    product stay IEEE, and no K2 runs); on the CPU the fit equals the "high" one."""
+    for rank in ranks_14:
+        fast, high = rank["spied_fast"], rank["spied"]
+        G = len(high["result"]["loo_errors_gammas"])
+        chunk = [((94, 130), (130, 33)), ((94, 33), (33, G)), ((94, 33), (33, G))]
+        assert fast["tf32_products"] == chunk * (1504 // 94)
+        assert fast["sweep_precisions"] == []
+        for key, value in high["result"].items():
+            np.testing.assert_array_equal(fast["result"][key], value, err_msg=key)
+
+
+@pytest.mark.parametrize(
+    ("name", "high"),
+    [
+        ("estimator_fast", "estimator"),
+        ("estimator_streaming_fast", "estimator_streaming"),
+        ("device_pt_streaming_fast", "device_pt_streaming"),
+    ],
+)
+def test_fast_reaches_every_mesh_route(ranks_41, name, high) -> None:
+    """precision="fast" on a (4, 1) mesh: streaming (with the host or the device
+    pre-transform), each rank's K2 is called with precision="fast", and on the CPU its
+    plain sweep's three products on the rank's 375 rows are the only TF32 products; in
+    memory, only the two sweep contractions of each γ chunk are. The fit equals the "high"
+    fit on every rank, bit for bit, as every product is IEEE on the CPU."""
+    M2, G = 2 * 512 + 2, 1024
+    for rank in ranks_41:
+        fast, ref = rank[name], rank[high]
+        if "streaming" in name:
+            assert fast["sweep_precisions"] == ["fast"]
+            assert fast["tf32_products"] == [((375, M2), (M2, M2)), ((375, M2), (M2, G)), ((375, M2), (M2, G))]
+        else:
+            assert fast["sweep_precisions"] == []
+            assert fast["tf32_products"] == [((375, M2), (M2, 128))] * (2 * G // 128)
+        assert fast["gamma"] == ref["gamma"]
+        for key in ("loo_residuals", "loo_std", "predict", "predict_std"):
+            np.testing.assert_array_equal(fast[key], ref[key], err_msg=key)
 
 
 @pytest.mark.parametrize("shape", [(4, 1), (2, 2), (1, 4)])

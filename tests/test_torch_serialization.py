@@ -6,7 +6,9 @@ port's dict has the JAX package's nested layout and ``format_version``, so each 
 loader reads the other's dict: a JAX dict restored by ``from_jax_state_dict`` carries the
 isotonic calibrator, the eight ``*_calib_l{1,2}_`` arrays and the fitted conformal levels
 (bit-equal arrays, predictions at rtol 1e-10), and a port dict restored by the JAX loader
-predicts what the port's model does at rtol 1e-10.
+predicts what the port's model does at rtol 1e-10. A pickle stores no device: the loading
+process serves on the device the ``device`` parameter names there, and never falls back
+to the CPU.
 """
 
 import pickle
@@ -191,6 +193,36 @@ def test_restored_model_defaults_to_the_card() -> None:
     for load in (model_from_state_dict, from_jax_state_dict, t_est.NeoLSSVM.from_state_dict):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             load(state)
+
+
+def test_pickle_restores_on_the_loading_processs_device() -> None:
+    """A pickle carries no device: a model fitted on a device the loading process lacks
+    (``meta`` stands for it here) serves on the device its ``device`` parameter names."""
+    X, y, X_test = _data("regression", "primal")
+    model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=16), device="cpu").fit(X, y)
+    want = model.predict(X_test), model.predict_std(X_test)
+    model.device_ = torch.device("meta")
+    restored = pickle.loads(pickle.dumps(model))
+    assert "device_" not in vars(restored)
+    np.testing.assert_array_equal(restored.predict(X_test), want[0])
+    np.testing.assert_array_equal(restored.predict_std(X_test), want[1])
+    assert restored.device_ == torch.device("cpu")
+
+
+def test_a_cuda_pickle_never_falls_back_to_the_cpu() -> None:
+    """Unpickled where no card is, a model whose device is "cuda" stays readable, raises
+    at its first prediction, and moves to the CPU only by ``from_state_dict``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+    X, y, X_test = _data("regression", "primal")
+    model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=16), device="cpu").fit(X, y)
+    model.device = "cuda"
+    restored = pickle.loads(pickle.dumps(model))
+    assert restored.γ_ == model.γ_
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restored.predict(X_test)
+    moved = t_est.NeoLSSVM.from_state_dict(restored.to_state_dict(), device="cpu")
+    np.testing.assert_array_equal(moved.predict(X_test), model.predict(X_test))
 
 
 def test_custom_feature_map_round_trips_by_module_and_qualname() -> None:
