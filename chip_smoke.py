@@ -91,11 +91,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
     near-optimal, LOO R² within 0.01); against ``primal_fit_streaming`` on one GPU, the objective over the γ grid
     within K2's f32 limit (relative 1e-4), the same γ index (or both indices' objectives
     within that limit) and LOO R² within 1e-5; in f64 at 131,072 rows γ equal and β at rtol
-    1e-9. (b) The same on (2, 2), the feature axis in plain torch: no launch, LOO R² within
-    1e-5 of (a). (c) ``NeoLSSVM(mesh="auto")`` on 4,194,304 rows, twice on every rank: the
-    device pre-transform on rank 0, then K1 and K2 once on each rank's 1,048,576 rows;
-    against the single-GPU default fit, γ as in (a), LOO R² within 1e-5, ``predict`` on the
-    65,536 held-out rows at rtol 1e-4, every rank's ``loo_residuals_`` equal to rank 0's;
+    1e-9. ``sharded_device_pre_transform`` on the same rows, each rank its 262,144, with the
+    draws of one GPU's seed (made on rank 0 and sent): the per-bin medians bit-equal to one
+    GPU's, M and b distances reported, every rank's operands equal to rank 0's, and in f64
+    at 131,072 rows every operand within rtol 1e-9. (b) The same fit on (2, 2), the feature
+    axis in plain torch: no launch, LOO R² within 1e-5 of (a). (c) ``NeoLSSVM(mesh="auto")``
+    on 4,194,304 rows, twice on every rank: the device pre-transform on each rank's
+    1,048,576 rows, then K1 and K2 once on them; against the single-GPU default fit, γ as in
+    (a), LOO R² within 1e-5, ``predict`` on the 65,536 held-out rows at rtol 1e-4, every
+    rank's ``loo_residuals_`` equal to rank 0's; each rank's peak device memory over the
+    second fit (rank 0's at most 1.25× the largest other's) and its pre-transform's seconds;
     then three more ``random_state`` values on both sides, their LOO R² distance reported,
     beside one GPU's own distance between the rows as given and reordered at each draw.
     (d) NCCL in a world of one rank: the default 1M fit through the mesh route, γ equal and
@@ -1098,7 +1103,8 @@ def phase_calibration(X, y, X_test, y_test, dev: torch.device) -> NeoLSSVM:
     reset_launches()
     fit_s, model = timed(lambda: NeoLSSVM(device=dev).fit(X, labels))
     launches = read_launches("the classifier's 1M fit")
-    check("predict_proba_calibrator_" not in vars(model), "fit made the calibrator: it must wait for its first use")
+    check("predict_proba_calibrator_" not in model._fitted_state(),
+          "fit made the calibrator: it must wait for its first use")
     pav_calls = native.calls["pav_fit"]
     first_s, proba = timed(lambda: model.predict_proba(X_test))
     check(native.calls["pav_fit"] == pav_calls + 1, "the calibrator's PAV did not run in the native loop")
@@ -1194,7 +1200,7 @@ def phase_conformal(X, y, X_test, y_test, dev: torch.device) -> NeoLSSVM:
     reset_launches()
     fit_s, model = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
     launches = read_launches("the regressor's 1M fit")
-    check("conformal_l1_" not in vars(model), "fit made the conformal split: it must wait for its first use")
+    check("conformal_l1_" not in model._fitted_state(), "fit made the conformal split: it must wait for its first use")
     first_s, interval = timed(lambda: model.predict_interval(X_test, coverage=0.9))
     repeat_s = statistics.median(timed(lambda: model.predict_interval(X_test, coverage=0.9))[0] for _ in range(5))
     check(interval.shape == (65_536, 2) and bool(np.all(np.isfinite(interval))), "predict_interval: bad output")
@@ -1303,6 +1309,9 @@ MESH_DRAWS = (1, 2, 3)
 # K2's f32 limit (relative, over the whole γ grid), and how far the LOO R² of two fits of
 # the same rows may part when one sums the Gram and the sweep over 4 row shards.
 SWEEP_TOL_F32, MESH_LOO_TOL = 1e-4, 1e-5
+# Rank 0's peak device memory over a mesh fit, at most this many times the largest of the
+# other ranks': every rank pre-transforms its own block of rows.
+PEAK_RATIO_LIMIT = 1.25
 
 
 def note(what: str) -> None:
@@ -1322,6 +1331,23 @@ def _one_launch_each(path: str, sweep_path: str | None = None) -> dict:
     return {name: {p: int(p == paths[name]) for p in mods[name].path_launches} for name in mods}
 
 
+def block_medians(mesh, X_l: torch.Tensor, y_all: torch.Tensor, w_all: torch.Tensor) -> np.ndarray:
+    """The per-bin medians of the device pre-transform's bins from this rank's block of
+    rows, every sum over rows completed over the mesh's ``data`` axis."""
+    from functools import partial  # noqa: PLC0415
+
+    from neo_ls_svm_torch.parallel import collectives  # noqa: PLC0415
+    from neo_ls_svm_torch.parallel import mesh as tmesh  # noqa: PLC0415
+
+    data, num_bins = mesh.get_group("data"), PT_KW["num_bins"]
+    rows = tmesh._block(mesh, len(y_all), tmesh.axis_size(mesh, "data"))
+    codes, _ = _target_codes(y_all, w_all, num_bins=num_bins, is_classifier=False)
+    return affine_mod.grouped_weighted_median(
+        X_l, w_all[rows], codes[rows], num_bins,
+        row_sum=partial(collectives.sum_over, group=data), row_gather=partial(collectives.gather_rows, group=data),
+    ).cpu().numpy()
+
+
 def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple) -> None:
     """One rank of the ``mesh`` phase, in a process of its own. With gloo every rank
     computes on card 0 (the sums pass through the host); with NCCL rank r on card r."""
@@ -1329,6 +1355,7 @@ def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple)
 
     import torch.distributed as dist  # noqa: PLC0415
 
+    from neo_ls_svm_torch.parallel import mesh as tmesh  # noqa: PLC0415
     from neo_ls_svm_torch.parallel.mesh import make_mesh, sharded_primal_fit_streaming  # noqa: PLC0415
 
     torch.cuda.set_device(rank if backend == "nccl" else 0)
@@ -1357,16 +1384,41 @@ def _mesh_rank(rank: int, world: int, workdir: Path, backend: str, tasks: tuple)
             note(f"mesh: {backend} rank {rank}: {tag} fit {seconds:.2f} s")
             out[tag] = {"seconds": seconds, "launches_by_path": _launches_by_path(),
                         **{k: r[k].cpu().numpy() for k in ("loo_errors_gammas", "optimum_index", "loo_score", "beta_emb")}}
+        # The device pre-transform on each rank's block of the same rows, the draws of one
+        # GPU's seed made on rank 0 and sent: f32 on the 1M rows, f64 on the first 131,072.
+        mesh, dev = meshes[(world, 1)], tmesh.mesh_device(meshes[(world, 1)])
+        for tag, rows, dtype in (("pt_f32", len(y), np.float32), ("pt_f64", N_KERNEL, np.float64)):
+            X_l = tmesh._stage_rows(mesh, np.asarray(X[:rows], dtype), world, dev)
+            y_all, w_all = (tmesh._stage_padded(a, world, dev)
+                            for a in (np.asarray(y[:rows], dtype), np.ones(rows, dtype)))
+            seconds, pt = timed(lambda: tmesh.sharded_device_pre_transform(  # noqa: B023
+                mesh, X_l, y_all, w_all, pt_generator(dev), **PT_KW))  # noqa: B023
+            out[tag] = {"seconds": seconds, **{k: v.cpu().numpy() for k, v in pt.items()}}
+            if tag == "pt_f32":
+                out[tag]["medians"] = block_medians(mesh, X_l, y_all, w_all)
     if "estimator" in tasks:
         # Two fits: the first builds the mesh's groups and warms the libraries; the
         # launches and results are the second's.
-        seconds = []
-        for _ in range(2):
-            reset_launches()
-            fit_s, model = timed(lambda: NeoLSSVM(mesh="auto").fit(load("X4"), load("y4")))
-            seconds.append(fit_s)
+        # Each rank's peak device memory over the second fit, and its pre-transform's seconds.
+        seconds, pretransform_s, real = [], [], tmesh.sharded_device_pre_transform
+
+        def timed_pretransform(*args, **kwargs):
+            pt_s, pt = timed(lambda: real(*args, **kwargs))
+            pretransform_s.append(pt_s)
+            return pt
+
+        tmesh.sharded_device_pre_transform = timed_pretransform
+        try:
+            for _ in range(2):
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                fit_s, model = timed(lambda: NeoLSSVM(mesh="auto").fit(load("X4"), load("y4")))
+                seconds.append(fit_s)
+        finally:
+            tmesh.sharded_device_pre_transform = real
         note(f"mesh: {backend} rank {rank}: estimator fits {seconds}")
         out["estimator"] = {"seconds": seconds, "launches_by_path": _launches_by_path(),
+                            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "pretransform_s": pretransform_s,
                             "mesh_shape": tuple(model.mesh_.shape), "pre_transform": model.pre_transform_,
                             "loo_errors_gammas": model.loo_errors_γs_, "loo_score": model.loo_score_,
                             "predict": model.predict(load("X_test"))}
@@ -1426,6 +1478,11 @@ def hold_estimator_ranks(ranks: list[dict], single: NeoLSSVM, single_predict: np
               f"mesh {backend} rank {rank}: launches {est_r['launches_by_path']}")
         check(bool(np.array_equal(np.load(workdir / f"loo_residuals-{backend}-{rank}.npy"), residuals)),
               f"mesh {backend} rank {rank}: loo_residuals_ differ from rank 0's")
+    # Every rank pre-transforms its own block: no rank holds all of X or the n × d
+    # intermediates, so rank 0 holds what the others hold.
+    peaks = [r["estimator"]["peak_memory_bytes"] for r in ranks]
+    if world > 1:
+        check(peaks[0] <= PEAK_RATIO_LIMIT * max(peaks[1:]), f"mesh {backend}: rank peaks {peaks} bytes")
     loo_diff = abs(first["loo_score"] - single.loo_score_)
     check(loo_diff <= MESH_LOO_TOL, f"mesh {backend} estimator: LOO R² {first['loo_score']} vs {single.loo_score_}")
     # rtol 1e-4, and an absolute floor of 1e-5 of the predictions' scale for the ŷ near 0.
@@ -1435,6 +1492,8 @@ def hold_estimator_ranks(ranks: list[dict], single: NeoLSSVM, single_predict: np
     return {"ranks": world, "mesh_fit_s": first["seconds"], "loo_score": first["loo_score"], "loo_score_diff": loo_diff,
             "loo_score_diff_by_random_state": draw_diffs, "loo_score_diff_max_over_draws": max(draw_diffs.values()),
             "predict_max_abs_diff": float(np.max(np.abs(first["predict"] - single_predict))),
+            "peak_memory_bytes_per_rank": peaks, "rank0_peak_over_largest_other": peaks[0] / max(peaks[1:] or peaks),
+            "pretransform_s_per_rank": [r["estimator"]["pretransform_s"] for r in ranks],
             "launches_per_rank": [r["estimator"]["launches_by_path"] for r in ranks], **agree}
 
 
@@ -1473,6 +1532,15 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
     X_d, y_d = upload_rows(X, "float32", dev), est._to_device(y, dev)
     w_d = torch.ones_like(y_d)
     pt = device_pre_transform(X_d, y_d, w_d, pt_generator(dev), **PT_KW)  # the 1M fit's M and b
+    codes, _ = _target_codes(y_d, w_d, num_bins=PT_KW["num_bins"], is_classifier=False)
+    single_medians = affine_mod.grouped_weighted_median(X_d, w_d, codes, PT_KW["num_bins"]).cpu().numpy()
+    single_pt_s = statistics.median(
+        timed(lambda: device_pre_transform(X_d, y_d, w_d, pt_generator(dev), **PT_KW))[0] for _ in range(3))
+    single_pt = {
+        "pt_f32": {k: v.cpu().numpy() for k, v in pt.items()},
+        "pt_f64": {k: v.cpu().numpy() for k, v in device_pre_transform(
+            *(a[:N_KERNEL].double() for a in (X_d, y_d, w_d)), pt_generator(dev), **PT_KW).items()},
+    }
     for name, array in (("X", X), ("y", y), ("M", pt["M"].cpu().numpy()), ("b", pt["b"].cpu().numpy()),
                         ("X4", X4), ("y4", y4), ("X_test", X_test)):
         np.save(MESH_DIR / f"{name}.npy", array)
@@ -1484,12 +1552,14 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
         ops = [a[:rows].to(g_d.dtype) if a.shape[0] == len(y) else a.to(g_d.dtype) for a in (X_d, pt["M"], pt["b"], y_d, w_d)]
         result = primal_fit_streaming(*ops, g_d, None, is_classifier=False, row_chunk=MESH_ROW_CHUNK, num_samples=rows)
         single[tag] = {k: v.cpu().numpy() for k, v in result.items()}
-    del X_d, y_d, w_d, pt
+    del X_d, y_d, w_d, pt, codes
     note("mesh: single-GPU references of (a) done")
     single_fit_s = []
     for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
         fit_s, single_model = timed(lambda: NeoLSSVM(device=dev).fit(X4, y4))
         single_fit_s.append(fit_s)
+    single_peak = torch.cuda.max_memory_allocated()
     single_predict = single_model.predict(X_test)
     single_draws = {seed: NeoLSSVM(device=dev, random_state=seed).fit(X4, y4).loo_score_ for seed in MESH_DRAWS}
     order_noise = row_order_noise(X4, y4, dev)
@@ -1520,6 +1590,30 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
         **agree, "f64_rows": N_KERNEL, "f64_beta_max_abs_diff": float(np.max(np.abs(f64["beta_emb"] - single["f64"]["beta_emb"]))),
         "launches_per_rank": [r["f32"]["launches_by_path"] for r in ranks],
     }
+    # (a, pre-transform) The device pre-transform on each rank's 262,144 rows, the draws of
+    # one GPU's seed: per-bin medians bit-equal (unit weights: every mass an exact integer),
+    # M and b distances reported in f32, and f64 at 131,072 rows within rtol 1e-9.
+    for rank, result in enumerate(ranks):
+        check(bool(np.array_equal(result["pt_f32"]["medians"], single_medians)),
+              f"mesh pre-transform rank {rank}: medians")
+        for tag in ("pt_f32", "pt_f64"):
+            for key, value in single_pt[tag].items():
+                check(bool(np.array_equal(result[tag][key], ranks[0][tag][key])),
+                      f"mesh {tag} rank {rank}: {key} differs")
+    distances = {}
+    for tag in ("pt_f32", "pt_f64"):
+        for key in ("M", "b", "pt_shift", "pt_scale", "pt_A"):
+            ours, ref = ranks[0][tag][key].astype(np.float64), single_pt[tag][key].astype(np.float64)
+            distances[f"{tag}_{key}_max_abs_diff"] = float(np.max(np.abs(ours - ref)))
+            distances[f"{tag}_{key}_max_diff_over_max_abs"] = float(np.max(np.abs(ours - ref)) / np.max(np.abs(ref)))
+            if tag == "pt_f64":
+                np.testing.assert_allclose(ours, ref, rtol=1e-9, atol=1e-9 * float(np.max(np.abs(ref))),
+                                           err_msg=f"mesh f64 pre-transform {key}")
+    record["function_level_pretransform"] = {
+        "rows_per_rank": (1 << 20) // MESH_RANKS, "medians_bit_equal": True, "f64_rows": N_KERNEL,
+        "seconds_rank0": ranks[0]["pt_f32"]["seconds"], "seconds_per_rank": [r["pt_f32"]["seconds"] for r in ranks],
+        "single_gpu_seconds": single_pt_s, **distances,
+    }
     # (a, fast) The same fit under sweep_precision="fast": K2 once a rank on the one-pass path.
     fast = ranks[0]["f32_fast"]
     for rank, result in enumerate(ranks):
@@ -1544,7 +1638,7 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
     # (c) The estimator, NeoLSSVM(mesh="auto") on 4,194,304 rows.
     record["estimator"] = {"n": N_MESH_FIT,
                            **hold_estimator_ranks(ranks, single_model, single_predict, single_draws, MESH_DIR, "gloo"),
-                           "single_fit_s": single_fit_s,
+                           "single_fit_s": single_fit_s, "single_gpu_peak_memory_bytes": single_peak,
                            "note": "four ranks share one card and sum through the host: the times say nothing of scaling"}
     estimator_launches = {name: [r["estimator"]["launches_by_path"][name][_build.PATH_TF32] for r in ranks]
                           for name in ("fused_augmented_gram", "fused_loo_sweep")}

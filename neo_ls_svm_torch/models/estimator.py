@@ -72,7 +72,7 @@ from neo_ls_svm_torch.parallel.mesh import (
     sharded_primal_fit_device_pt,
     sharded_primal_fit_streaming,
 )
-from neo_ls_svm_torch.utils.base import BaseEstimator, clone
+from neo_ls_svm_torch.utils.base import BaseEstimator, clone, sklearn_tags
 from neo_ls_svm_torch.utils.device import (
     is_tensor,
     numpy_dtype,
@@ -407,6 +407,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             "sample_weight": sample_weight_,
             "is_classifier": is_classifier,
             "num_rows": len(y_),
+            "made": {},  # what is made at first use: the fit's __dict__ stays as it is
         }
         return self
 
@@ -708,20 +709,20 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         a million rows a lexsort, a ``unique`` and the PAV loop, so it waits for the first
         ``predict_proba``."""
         ctx = self.__dict__.get("_calibration_ctx")
-        if ctx is None or not ctx["is_classifier"] or "predict_proba_calibrator_" in self.__dict__:
+        if ctx is None or not ctx["is_classifier"] or "predict_proba_calibrator_" in ctx["made"]:
             return
         calibrator = IsotonicCalibrator(out_of_bounds="clip", y_min=0, y_max=1, increasing=True)
         y_ = ctx["y_"]
         target = np.zeros_like(y_)
         target[y_ == np.max(y_)] = 1.0
         calibrator.fit(self.loo_ŷ_, target, ctx["sample_weight"])
-        self.predict_proba_calibrator_ = calibrator
+        ctx["made"]["predict_proba_calibrator_"] = calibrator
 
     def _materialize_conformal_split(self) -> None:
         """The two-level conformal calibration split (ref ``:414-430``): a permutation of
         all rows, so it waits for the first conformal call."""
         ctx = self.__dict__.get("_calibration_ctx")
-        if ctx is None or "conformal_l1_" in self.__dict__:
+        if ctx is None or "conformal_l1_" in ctx["made"]:
             return
         num_rows = ctx["num_rows"]
         split = train_test_split(
@@ -732,11 +733,15 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             train_size=min(1440, max(1024, (num_rows * 2) // 3), num_rows - 1),
             random_state=self.random_state,
         )
-        for name, value in zip(_CONFORMAL_SPLIT_ATTRS, split):
-            setattr(self, name, value)
-        self.conformal_l2_: dict[str, dict[tuple[float, ...], npt.NDArray]] = {"Δŷ": {}, "Δŷ/ŷ": {}}
-        # Set last: its presence says that the split is whole.
-        self.conformal_l1_: dict[str, dict[tuple[float, ...], Any]] = {"Δŷ": {}, "Δŷ/ŷ": {}}
+        made = dict(zip(_CONFORMAL_SPLIT_ATTRS, split))
+        made["conformal_l2_"] = {"Δŷ": {}, "Δŷ/ŷ": {}}  # per target: quantiles → level-2 biases
+        made["conformal_l1_"] = {"Δŷ": {}, "Δŷ/ŷ": {}}  # per target: quantiles → level-1 CQR
+        ctx["made"].update(made)
+
+    def _fitted_state(self) -> dict[str, Any]:
+        """``vars(self)`` with the calibration state made at first use so far."""
+        ctx = self.__dict__.get("_calibration_ctx")
+        return {**self.__dict__, **(ctx["made"] if ctx is not None else {})}
 
     def __getattr__(self, name: str) -> Any:
         # Normal lookup failed. A restored model's device is resolved from the device
@@ -745,12 +750,15 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         if name == "device_" and "γ_" in self.__dict__:
             self.device_ = self._resolve_device()
             return self.device_
-        # A calibration attribute that the last fit has not made yet is made now.
+        # A calibration attribute of the last fit is made at its first use and kept beside
+        # the fit's inputs: a serving call leaves the fit's __dict__ as it is (sklearn's
+        # check_dict_unchanged), and a refit drops both.
         maker = _LAZY_CALIBRATION.get(name)
-        if maker is not None and self.__dict__.get("_calibration_ctx") is not None:
+        ctx = self.__dict__.get("_calibration_ctx")
+        if maker is not None and ctx is not None:
             getattr(self, maker)()
-            if name in self.__dict__:
-                return self.__dict__[name]
+            if name in ctx["made"]:
+                return ctx["made"][name]
         msg = f"{type(self).__name__!r} object has no attribute {name!r}"
         raise AttributeError(msg)
 
@@ -760,7 +768,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         device they lie on: the loading process resolves its own (``__getattr__``)."""
         self._materialize_calibrator()
         self._materialize_conformal_split()
-        state = dict(self.__dict__)
+        state = self._fitted_state()
         state.pop("_device_cache", None)
         state.pop("device_", None)
         state.pop("_calibration_ctx", None)
@@ -1012,3 +1020,13 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         from neo_ls_svm_torch.utils.serialization import model_from_state_dict  # noqa: PLC0415
 
         return model_from_state_dict(state, device=device)
+
+    def _more_tags(self) -> dict[str, Any]:
+        return {"binary_only": True, "requires_y": True}
+
+    def __sklearn_tags__(self):  # noqa: ANN204 - sklearn protocol
+        """A binary-only classifier or a regressor, by the fitted task, else by
+        ``estimator_type``; y is required."""
+        kind = None if self.estimator_type == "auto" else self.estimator_type
+        kind = getattr(self, "_estimator_type", None) or kind
+        return sklearn_tags(kind, target_required=True, multi_class=False)

@@ -19,6 +19,7 @@ same call order as the reference, so fitted parameters match bit-for-bit for a g
 ``random_state``.
 """
 
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -152,6 +153,47 @@ class AffineFeatureMap(BaseEstimator, TransformerMixin):
             out = np.hstack((X, out))
         return out
 
+    @property
+    def pseudo_inverse(self) -> npt.NDArray | None:
+        """Pseudo-inverse of the effective transformation matrix A (lazily cached)."""
+        A = getattr(self, "A_", self.A)
+        if A is None:
+            return None
+        cached = getattr(self, "_pseudo_inverse_cache", None)
+        if cached is None or cached[0] is not A:
+            cached = (A, np.linalg.pinv(A))
+            self._pseudo_inverse_cache = cached
+        return cached[1]
+
+    def inverse_transform(self, X_transformed: npt.NDArray) -> npt.NDArray:
+        """Approximately invert this transformation."""
+        X = check_array(X_transformed)
+        A = getattr(self, "A_", self.A)
+        num_features = X.shape[1] if A is None else A.shape[0]
+        scale, shift, A = self._effective_params(num_features)
+        if self.append_features and A is not None:
+            return X[:, : A.shape[0]]
+        if A is not None:
+            X = X @ self.pseudo_inverse
+        return (X * scale + shift).astype(X.dtype)
+
+    def get_feature_names_out(
+        self, input_features: npt.ArrayLike | None = None
+    ) -> npt.NDArray[np.object_]:
+        """Get output feature names for the transformation."""
+        A = getattr(self, "A_", self.A)
+        if input_features is None:
+            n = getattr(self, "n_features_in_", A.shape[0] if A is not None else 1)
+            input_features = [f"x{j}" for j in range(n)]
+        feats = np.asarray(input_features, dtype=object)
+        if A is None:
+            out = np.array([f"{f}_shifted_scaled" for f in feats], dtype=object)
+        else:
+            joined = ",".join(str(f) for f in feats)
+            out = np.array([f"{joined}_affine_map"] * A.shape[1], dtype=object)
+        if self.append_features and A is not None:
+            out = np.hstack((feats, out))
+        return out
 
 
 class AffineNormalizer(AffineFeatureMap):
@@ -254,11 +296,22 @@ def _ordered_int_to_float(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return bits.view(dtype)
 
 
+# Rows per block of the normalizer's float64 deviation sums.
+DEVIATION_ROWS = 1 << 20
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def grouped_weighted_median(
     X: torch.Tensor,  # (n, d)
     w: torch.Tensor,  # (n,) nonnegative; 0 excludes a row
     codes: torch.Tensor,  # (n,) integer bin codes; codes >= num_bins are excluded
     num_bins: int,
+    *,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    row_gather: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> torch.Tensor:
     """(num_bins, d) weighted medians per (bin, column), sort-free and with no host read.
 
@@ -275,12 +328,17 @@ def grouped_weighted_median(
 
     The final boundary masses are always taken in float64: mass_le − mass_lt is a single
     entry's weight, a cancellation of two sums of about W/2 each.
+
+    On a mesh the rows are this rank's: ``row_sum`` completes every sum over rows across
+    the ranks, and ``row_gather`` stacks each rank's (1, …) partial into (ranks, …) for the
+    neighbouring values' max and min. Both are the identity on one device. With unit
+    weights every mass is an exact integer, so the medians do not depend on the split.
     """
     d = X.shape[1]
     compute, acc = X.dtype, torch.float64
     onehot = codes[:, None] == torch.arange(num_bins, dtype=codes.dtype, device=X.device)[None, :]
     w_oh = onehot.to(compute) * w[:, None].to(compute)  # (n, B) per-bin weighted indicator
-    W = w_oh.sum(dim=0)  # (B,)
+    W = row_sum(w_oh.sum(dim=0))  # (B,)
     t = 0.5 * W
     xo = _float_to_ordered_int(X)  # (n, d) ordered ints, same width as the dtype
     int_dtype = xo.dtype
@@ -290,7 +348,7 @@ def grouped_weighted_median(
     for _ in range(65 if X.dtype == torch.float64 else 33):
         # Overflow-safe floor average: the ordered ints span the full integer range.
         mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
-        mass = w_oh.T @ (xo <= mid[codes_safe]).to(compute)  # (B, d)
+        mass = row_sum(w_oh.T @ (xo <= mid[codes_safe]).to(compute))  # (B, d)
         ge = mass >= t[:, None]
         lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
     v_hi = _ordered_int_to_float(hi, X.dtype).to(acc)  # (B, d) crossing member value
@@ -299,9 +357,9 @@ def grouped_weighted_median(
     le = (xo <= hi_rows).to(acc)
     lt = (xo < hi_rows).to(acc)
     w_oh_acc = w_oh.to(acc)
-    mass_le = w_oh_acc.T @ le
-    mass_lt = w_oh_acc.T @ lt
-    cnt_run = onehot.to(acc).T @ (le - lt)
+    mass_le, mass_lt, cnt_run = row_sum(
+        torch.stack([w_oh_acc.T @ le, w_oh_acc.T @ lt, onehot.to(acc).T @ (le - lt)])
+    )
     # Neighbouring member values around the v_hi run, per bin (num_bins is small).
     v_lo = torch.empty((num_bins, d), dtype=compute, device=X.device)
     v_next = torch.empty((num_bins, d), dtype=compute, device=X.device)
@@ -309,7 +367,8 @@ def grouped_weighted_median(
         in_bin = ((codes == b) & (w > 0))[:, None]
         v_lo[b] = torch.where(in_bin & (xo < hi[b][None, :]), X, -torch.inf).amax(dim=0)
         v_next[b] = torch.where(in_bin & (xo > hi[b][None, :]), X, torch.inf).amin(dim=0)
-    v_lo, v_next = v_lo.to(acc), v_next.to(acc)
+    partials = row_gather(torch.stack([v_lo, v_next])[None])  # (ranks, 2, B, d)
+    v_lo, v_next = partials[:, 0].amax(dim=0).to(acc), partials[:, 1].amin(dim=0).to(acc)
     t_acc = t.to(acc)[:, None]
     w_edge = (mass_le - mass_lt) / cnt_run.clamp_min(1.0)
     safe_edge = w_edge.clamp_min(torch.finfo(acc).tiny)
@@ -333,23 +392,37 @@ def _normalizer_stats_device(
     bin_totals: torch.Tensor,  # (num_bins,) total bin weights (0 for empty bins)
     *,
     num_bins: int,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    row_gather: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-bin weighted medians/MADs and the pairwise shift/scale accumulation, on tensors.
 
     Counterpart of the host loop in :meth:`AffineNormalizer.fit` (itself mirroring ref
     ``_affine_normalizer.py:80-114``): medians come from the sort-free bisection in
     :func:`grouped_weighted_median`, the mean absolute deviations from one one-hot
-    product, and the O(B²) bin-pair accumulation is a masked broadcast.
+    product, and the O(B²) bin-pair accumulation is a masked broadcast. On a mesh the rows
+    are this rank's and the hooks complete the sums over rows, as in
+    :func:`grouped_weighted_median`; ``bin_totals`` is already whole.
     """
     eps = torch.finfo(X.dtype).eps
     bin_valid = bin_totals > 0  # (B,)
-    med = grouped_weighted_median(X, w, codes, num_bins)  # (B, d)
+    med = grouped_weighted_median(X, w, codes, num_bins, row_sum=row_sum, row_gather=row_gather)  # (B, d)
     med = torch.where(bin_valid[:, None], med, 0.0)  # scrub empty-bin values before reuse
     codes_safe = codes.clamp(0, num_bins - 1).long()
     onehot = codes[:, None] == torch.arange(num_bins, dtype=codes.dtype, device=X.device)[None, :]
     w_oh = onehot.to(X.dtype) * w[:, None]
-    w_sum = w_oh.sum(dim=0).clamp_min(eps)  # (B,)
-    sigma = (w_oh.T @ (X - med[codes_safe]).abs()) / w_sum[:, None]
+    w_sum = row_sum(w_oh.sum(dim=0)).clamp_min(eps)  # (B,)
+    # The deviations are summed in float64 (then rounded once): one float32 product over
+    # millions of rows strays from the exact sum in its last bits (7.5e-7 relative at 4M
+    # rows on an H100, PERF.md), rows split over ranks stray another way, and an f32 LOO fit
+    # feels either; in float64 both round to the same σ. A block of rows at a time, so that
+    # no (n, d) float64 copy is made.
+    dev_sum = torch.zeros((num_bins, X.shape[1]), dtype=torch.float64, device=X.device)
+    for start in range(0, X.shape[0], DEVIATION_ROWS):
+        part = slice(start, start + DEVIATION_ROWS)
+        deviations = (X[part] - med[codes_safe[part]]).abs().to(torch.float64)
+        dev_sum += w_oh[part].to(torch.float64).T @ deviations
+    sigma = (row_sum(dev_sum) / w_sum.to(torch.float64)[:, None]).to(X.dtype)
     # Pairwise accumulation over valid bins i < j.
     diff = med[None, :, :] - med[:, None, :]  # (i, j, d): μⱼ - μᵢ
     sum_sigma = (sigma[:, None, :] + sigma[None, :, :]).clamp_min(eps)

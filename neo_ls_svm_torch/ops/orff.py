@@ -11,8 +11,10 @@ downstream algebra runs in the real 2(D+1) symmetric embedding of the Hermitian 
 (see ``models/primal.py``). The host-side ``transform`` returns the reference-compatible
 complex matrix for API parity and testing.
 
-A copy of ``neo_ls_svm_tpu.ops.orff`` without the exact sinc complexity matrix (the
-shipped default is the identity; the exact matrix waits for a later port).
+A copy of ``neo_ls_svm_tpu.ops.orff``. The shipped complexity matrix is the identity; the
+exact sinc-product matrix (:func:`complexity_sinc_matrix`, jitted XLA code in the JAX
+package) is a plain torch function here, reached through
+:meth:`RandomFourierFeatures.complexity_matrix_exact`.
 
 RNG parity: Z, its blockwise QR orthogonalisation, and the χ row rescale are drawn from
 ``np.random.RandomState`` in the reference's call order (``_feature_maps.py:213-222``),
@@ -24,10 +26,35 @@ from typing import Any
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
 from neo_ls_svm_torch.ops.affine import AffineFeatureMap, AffineSeparator
 from neo_ls_svm_torch.utils.base import BaseEstimator, TransformerMixin
+from neo_ls_svm_torch.utils.precision import matmul_precision
 from neo_ls_svm_torch.utils.validation import check_random_state
+
+
+@matmul_precision("ieee")
+def complexity_sinc_matrix(Z: torch.Tensor, *, fast_approx: bool = False) -> torch.Tensor:
+    """Compute ``1/d · Z'Z ∘ [Πₖ sinc(Zₖᵢ - Zₖⱼ)]ᵢⱼ``.
+
+    The surface-complexity regularisation matrix ∫‖∇ₓφ(x)'w‖²dx over the normalised
+    feature cube (derivation: ref ``_feature_maps.py:71-96``): one product (Z'Z) and the
+    elementwise product of the unnormalised sinc of each row's pairwise differences. With
+    ``fast_approx`` the diagonal approximation — the identity — is returned, which is the
+    reference's shipped default (``_feature_maps.py:133-135``).
+    """
+    d, D = Z.shape
+    if fast_approx:
+        return torch.eye(D, dtype=Z.dtype, device=Z.device)
+    gram = Z.T @ Z
+    eps = torch.finfo(Z.dtype).eps
+    sinc_prod = torch.ones((D, D), dtype=Z.dtype, device=Z.device)
+    for k in range(d):
+        dz = Z[k, :, None] - Z[k, None, :]
+        factor = torch.where(dz.abs() > eps, torch.sin(dz) / torch.where(dz == 0, 1.0, dz), 1.0)
+        sinc_prod = sinc_prod * factor
+    return gram * sinc_prod / d
 
 
 class KernelApproximatingFeatureMap(ABC, BaseEstimator, TransformerMixin):
@@ -108,6 +135,13 @@ class RandomFourierFeatures(KernelApproximatingFeatureMap):
         """The shipped fast-approximation complexity matrix: the identity, extended with
         a diagonal entry that also shrinks the bias (ref ``_feature_maps.py:129-135``)."""
         return np.eye(self.D + 1, dtype=self.Z_.dtype)
+
+    def complexity_matrix_exact(self) -> npt.NDArray:
+        """The full sinc-product complexity matrix (the reference's dormant exact path),
+        computed on the CPU."""
+        C = np.eye(self.D + 1, dtype=self.Z_.dtype)
+        C[:-1, :-1] = complexity_sinc_matrix(torch.tensor(self.Z_), fast_approx=False).numpy()
+        return C
 
     def fit(
         self,

@@ -24,15 +24,21 @@ bit-parity path (statistically equivalent):
 - **Ties/summation order**: medians come from the sort-free bisection of
   :func:`~neo_ls_svm_torch.ops.affine.grouped_weighted_median`.
 
+On a mesh (``parallel/mesh.py::sharded_device_pre_transform``) each rank passes its own
+block of X's rows and the whole y and w, with hooks that complete every sum over X's rows
+across the ranks; the random inputs are drawn once (:func:`draw_pretransform_inputs`) and
+sent to every rank, so every sampled row index is global.
+
 Its float32 products are IEEE float32 whatever the caller set (``utils/precision.py``).
 """
 
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
 import torch
 
-from neo_ls_svm_torch.ops.affine import _normalizer_stats_device
+from neo_ls_svm_torch.ops.affine import _identity, _normalizer_stats_device
 from neo_ls_svm_torch.ops.weighted_quantile import weighted_quantile_torch
 from neo_ls_svm_torch.utils.precision import matmul_precision
 
@@ -72,6 +78,63 @@ def _sample_rows(u: torch.Tensor, cum_mass: torch.Tensor) -> torch.Tensor:
     return idx.clamp(0, cum_mass.shape[0] - 1)
 
 
+def draw_shapes(
+    d: int,
+    *,
+    num_bins: int,
+    num_features: int,
+    edge_sample_size: int,
+    edge_search_multiplier: int,
+    is_classifier: bool,
+    orthogonal: bool = True,
+) -> dict[str, tuple[int, ...]]:
+    """The shape of each random input of :func:`device_pre_transform` on d columns.
+
+    With exactly two bins each bin's complement is the other bin, so a classifier spends
+    4/3 of the edge sample budget (ref _affine_separator.py:138-139).
+    """
+    ess = int(edge_sample_size * 4 / 3) if is_classifier else edge_sample_size
+    m = ess * edge_search_multiplier
+    width = num_bins * d
+    shapes = {
+        "bin_sample": (num_bins, ess),
+        "complement": (num_bins, m),
+        "bin_pool": (num_bins, m),
+        "Z": (width, num_features),
+    }
+    if orthogonal:
+        shapes["chi_normals"] = (width, num_features)
+    return shapes
+
+
+def draw_pretransform_inputs(
+    generator: torch.Generator | None,
+    shapes: dict[str, tuple[int, ...]],
+    dtype: torch.dtype,
+    device: torch.device,
+) -> dict[str, torch.Tensor]:
+    """The random inputs of :func:`device_pre_transform`, drawn from ``generator``.
+
+    The generator is consumed in one fixed order: for each bin its edge sample, complement
+    and bin-pool uniforms in [0, 1), then the Gaussian Z, then the normals of the χ rescale
+    (orthogonal maps only). So a mesh that draws here once, on one rank, gets what one GPU
+    with that seed gets.
+    """
+
+    def uniforms(name: str, b_idx: int) -> torch.Tensor:
+        return torch.rand(shapes[name][1], generator=generator, dtype=dtype, device=device)
+
+    per_bin = [
+        {name: uniforms(name, b_idx) for name in ("bin_sample", "complement", "bin_pool")}
+        for b_idx in range(shapes["bin_sample"][0])
+    ]
+    draws = {name: torch.stack([row[name] for row in per_bin]) for name in per_bin[0]}
+    for name in ("Z", "chi_normals"):
+        if name in shapes:
+            draws[name] = torch.randn(shapes[name], generator=generator, dtype=dtype, device=device)
+    return draws
+
+
 def _sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Pairwise squared Euclidean distances (rows of A × rows of B)."""
     return (A * A).sum(dim=1, keepdim=True) - 2.0 * A @ B.T + (B * B).sum(dim=1, keepdim=True).T
@@ -92,6 +155,9 @@ def device_pre_transform(
     is_classifier: bool,
     orthogonal: bool = True,
     draws: dict[str, Any] | None = None,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    row_gather: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    row_start: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Binning → normalizer statistics → separator → ORFF fold, on the device of ``X``.
 
@@ -101,65 +167,83 @@ def device_pre_transform(
     ``OrthogonalRandomFourierFeatures.fit`` (ref ``_affine_separator.py:107-210``,
     ``_feature_maps.py:206-223``) with the deviations documented in the module docstring.
 
-    The random inputs come from ``generator`` (a generator on the device of ``X``), or
-    from ``draws`` where given: ``"bin_sample"`` (num_bins, ess), ``"complement"`` and
-    ``"bin_pool"`` (num_bins, ess·multiplier) uniforms in [0, 1) for the edge samples,
-    ``"Z"`` (num_bins·d, D) standard normals, and ``"chi"`` (1, D) χ² variates, with ess
-    the classifier-adjusted edge sample size.
+    The random inputs come from ``draws`` where given, else from ``generator`` (a generator
+    on the device of ``X``) through :func:`draw_pretransform_inputs`: ``"bin_sample"``
+    (num_bins, ess), ``"complement"`` and ``"bin_pool"`` (num_bins, ess·multiplier)
+    uniforms in [0, 1) for the edge samples, ``"Z"`` (num_bins·d, D) standard normals, and
+    for the χ rescale either ``"chi"`` (1, D) χ² variates or ``"chi_normals"``
+    (num_bins·d, D) standard normals, whose squares are summed over the kept rank; ess is
+    the classifier-adjusted edge sample size (:func:`draw_shapes`).
+
+    On a mesh ``X`` is this rank's block of rows, rows ``row_start`` to
+    ``row_start + len(X)`` of ``y`` and ``w``, which are whole: ``row_sum`` completes each
+    sum over X's rows across the ranks and ``row_gather`` stacks the ranks' partials
+    (:func:`~neo_ls_svm_torch.ops.affine.grouped_weighted_median`). A sampled row is taken
+    from the rank that holds it and summed over the ranks, zeros from every other: exact.
+    The bins, their masses and the row draws use only y and w, so they are the same on
+    every rank and as on one device. The defaults are one device's.
 
     Every product here must run in IEEE arithmetic, and does: the function runs inside
     ``matmul_precision("ieee")`` whatever the caller set.
     """
-    d = X.shape[1]
+    n_held, d = X.shape
     dtype, dev = X.dtype, X.device
     tiny = torch.finfo(dtype).tiny
-    draws = draws or {}
-
-    def given(name: str) -> "torch.Tensor | None":
-        value = draws.get(name)
-        if value is None or isinstance(value, torch.Tensor):
-            return value
-        return torch.from_numpy(np.array(value)).to(dev, dtype)  # a copy: it may be read-only
-
-    def uniform(name: str, b_idx: int, num: int) -> torch.Tensor:
-        value = given(name)
-        if value is not None:
-            return value[b_idx]
-        return torch.rand(num, generator=generator, dtype=dtype, device=dev)
+    if draws is None:
+        shapes = draw_shapes(
+            d,
+            num_bins=num_bins,
+            num_features=num_features,
+            edge_sample_size=edge_sample_size,
+            edge_search_multiplier=edge_search_multiplier,
+            is_classifier=is_classifier,
+            orthogonal=orthogonal,
+        )
+        draws = draw_pretransform_inputs(generator, shapes, dtype, dev)
+    draws = {  # a copy of an array: it may be read-only
+        k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)).to(dev, dtype)
+        for k, v in draws.items()
+    }
 
     codes, totals = _target_codes(y, w, num_bins=num_bins, is_classifier=is_classifier)
     valid = totals > 0
     degenerate = valid.sum() < 2
 
-    shift, scale = _normalizer_stats_device(X, w, codes, totals, num_bins=num_bins)
+    held = slice(row_start, row_start + n_held)
+    shift, scale = _normalizer_stats_device(
+        X, w[held], codes[held], totals, num_bins=num_bins, row_sum=row_sum, row_gather=row_gather
+    )
     shift = torch.where(degenerate, torch.zeros_like(shift), shift)
     scale = torch.where(degenerate, torch.ones_like(scale), scale)
     inv_scale = 1.0 / scale
 
-    def norm_rows(idx: torch.Tensor) -> torch.Tensor:
-        return (X[idx] - shift[None, :]) * inv_scale[None, :]
+    def take_rows(idx: torch.Tensor) -> torch.Tensor:
+        local = idx - row_start
+        here = (local >= 0) & (local < n_held)
+        return row_sum(torch.where(here[:, None], X[local.clamp(0, n_held - 1)], 0.0))
 
-    # With exactly two bins each bin's complement is the other bin; spend the sample
-    # budget accordingly (ref _affine_separator.py:138-139). The regression bin count is
-    # a constant > 2.
-    ess = edge_sample_size
-    if is_classifier:
-        ess = int(ess * 4 / 3)
-    m = ess * edge_search_multiplier
+    ess = draws["bin_sample"].shape[1]
 
-    edges_in = []
-    edges_out = []
+    # Each bin's edge sample, complement sample and bin pool: row indices drawn from y and w
+    # alone, so all of them are taken from X at once (on a mesh, one sum over the ranks).
+    sampled = []
     for b_idx in range(num_bins):
         in_bin = (codes == b_idx).to(dtype)
         in_comp = ((codes != b_idx) & (codes < num_bins)).to(dtype)
         cum_bin = torch.cumsum(w * in_bin, dim=0)
         cum_comp = torch.cumsum(w * in_comp, dim=0)
-        bin_sample = norm_rows(_sample_rows(uniform("bin_sample", b_idx, ess), cum_bin))
-        comp_sample = norm_rows(_sample_rows(uniform("complement", b_idx, m), cum_comp))
+        for name, cum in (("bin_sample", cum_bin), ("complement", cum_comp), ("bin_pool", cum_bin)):
+            sampled.append(_sample_rows(draws[name][b_idx], cum))
+    rows = (take_rows(torch.cat(sampled)) - shift[None, :]) * inv_scale[None, :]
+    rows = [r.clone() for r in rows.split([len(i) for i in sampled])]
+
+    edges_in = []
+    edges_out = []
+    for b_idx in range(num_bins):
+        bin_sample, comp_sample, bin_pool = rows[3 * b_idx : 3 * b_idx + 3]
         # Round 1: complement points nearest the bin sample = the complement edge.
         comp_edge = comp_sample[torch.argmin(_sq_dists(bin_sample, comp_sample), dim=1)]
         # Round 2: bin points nearest the complement edge = the bin's own edge.
-        bin_pool = norm_rows(_sample_rows(uniform("bin_pool", b_idx, m), cum_bin))
         bin_edge = bin_pool[torch.argmin(_sq_dists(comp_edge, bin_pool), dim=1)]
         edges_in.append(bin_edge)
         edges_out.append(comp_edge)
@@ -216,18 +300,16 @@ def device_pre_transform(
     # _feature_maps.py:206-223, following Yu et al. 2016); a plain RandomFourierFeatures
     # map keeps the i.i.d. N(0,1) draw it was configured with (ref :120-127).
     D = num_features
-    Z = given("Z")
-    if Z is None:
-        Z = torch.randn((width, D), generator=generator, dtype=dtype, device=dev)
+    Z = draws["Z"]
     if orthogonal:
         Z = torch.cat([torch.linalg.qr(Z[:, j : j + width])[0] for j in range(0, D, width)], dim=1)
-        chi = given("chi")
+        chi = draws.get("chi")
         if chi is None:
             # χ df = the effective column count of A (d on the degenerate fallback),
             # matching the host draw's A.shape[1]. df is an integer ≤ width, so a masked
             # sum of squared normals is exact and needs no host read of df.
             chi_df = torch.where(degenerate, torch.full_like(kept_rank, float(d)), kept_rank).clamp_min(1.0)
-            normals = torch.randn((width, D), generator=generator, dtype=dtype, device=dev)
+            normals = draws["chi_normals"]
             counted = torch.arange(width, dtype=dtype, device=dev)[:, None] < chi_df
             chi = (normals * normals * counted).sum(dim=0, keepdim=True)
         Z = Z * torch.sqrt(chi)

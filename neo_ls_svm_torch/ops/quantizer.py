@@ -190,6 +190,17 @@ class Quantizer(BaseEstimator, TransformerMixin):
                 out[:, X.shape[1] + j] = 1 / len(self.X_hist_[j]) / self.X_hist_[j][bin_idx]
         return out
 
+    def get_feature_names_out(
+        self, input_features: npt.ArrayLike | None = None
+    ) -> npt.NDArray[np.object_]:
+        """Get output feature names for the transformation."""
+        if input_features is None:
+            input_features = [f"x{j}" for j in range(self.n_features_in_)]
+        names = np.array([f"{f}_quantized" for f in np.asarray(input_features)], dtype=object)
+        if self.append_invfreq:
+            invfreq = np.array([f"{f}_invfreq" for f in np.asarray(input_features)], dtype=object)
+            names = np.hstack((names, invfreq))
+        return names
 
 
 def sample_bins_quantized_ecdf(x: npt.NDArray[Any], **kwargs: Any) -> npt.NDArray[np.intp]:
@@ -205,3 +216,17 @@ def sample_bins_quantized_ecdf(x: npt.NDArray[Any], **kwargs: Any) -> npt.NDArra
     bins: npt.NDArray[np.intp] = quantizer.fit_transform(codes[:, np.newaxis]).ravel()
     return bins
 
+
+def sample_weights_quantized_ecdf(x: npt.NDArray[Any], **kwargs: Any) -> npt.NDArray[np.floating]:
+    """Compute optimal sample weights of a vector by quantizing its ECDF.
+
+    Kept for API parity with the reference (``_quantizer.py:256-264``; unused by the
+    estimator there as well).
+    """
+    dtype: npt.DTypeLike = x.dtype if np.issubdtype(x.dtype, np.floating) else np.float64
+    uniq, codes, counts = np.unique(x, return_inverse=True, return_counts=True)
+    if len(uniq) <= np.ceil(np.sqrt(len(codes))):
+        return counts[codes] / np.sum(counts)
+    quantizer = Quantizer(append_invfreq=True, dtype=dtype, **kwargs)
+    weights: npt.NDArray[np.floating] = quantizer.fit_transform(codes[:, np.newaxis])[:, 1]
+    return weights

@@ -24,6 +24,11 @@ before the nonlinear LOO step (the fused kernels hide those partials).
 Every rank passes the full X (a host array, or a tensor on its own device) and receives
 the full result: this is the contract of the JAX package's multi-process fit.
 
+The device pre-transform runs on the same row blocks (``sharded_device_pre_transform``):
+each rank stages its block of X once, holds y and w whole, and completes every sum over
+X's rows over ``data``; its random inputs are drawn once, on the first rank, and sent to
+every rank. The solver then takes the staged block as it is.
+
 The fits run their float32 products in IEEE float32 whatever the caller set, and
 ``sweep_precision="fast"`` runs the γ-sweep's products only in one TF32 pass, as in
 ``models/primal.py`` (``utils/precision.py``).
@@ -53,9 +58,13 @@ from neo_ls_svm_torch.models.primal import (
     primal_fit,
     primal_fit_streaming,
 )
-from neo_ls_svm_torch.ops.pretransform_device import device_pre_transform
+from neo_ls_svm_torch.ops.pretransform_device import (
+    device_pre_transform,
+    draw_pretransform_inputs,
+    draw_shapes,
+)
 from neo_ls_svm_torch.parallel import collectives
-from neo_ls_svm_torch.utils.device import require_device, to_device, torch_dtype
+from neo_ls_svm_torch.utils.device import require_device, to_device
 from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 
 AXES = ("data", "feature")
@@ -124,14 +133,22 @@ def streaming_row_chunk(n: int, num_data: int, row_chunk: int = 16384) -> int:
     return min(row_chunk, math.ceil(n / num_data))
 
 
-def _stage_rows(mesh: DeviceMesh, arr: Operand, mult: int, device: torch.device) -> torch.Tensor:
-    """This rank's block of ``arr``'s rows, zero-padded as if ``arr`` were first padded to
-    a multiple of ``mult``: the block at this rank's data index. A host array crosses to
-    the device block by block; a tensor (on ``device``) is sliced and padded there."""
-    n = arr.shape[0]
+def _block(mesh: DeviceMesh, n: int, mult: int) -> slice:
+    """The rows of this rank's block once n rows are padded to a multiple of ``mult``: the
+    block at this rank's data index."""
     per = -(-n // mult) * mult // axis_size(mesh, "data")
     lo = mesh.get_local_rank("data") * per
-    hi = min(lo + per, n)
+    return slice(lo, lo + per)
+
+
+def _stage_rows(mesh: DeviceMesh, arr: Operand, mult: int, device: torch.device) -> torch.Tensor:
+    """This rank's block of ``arr``'s rows, zero-padded as if ``arr`` were first padded to
+    a multiple of ``mult``. A host array crosses to the device block by block; a tensor
+    (on ``device``) is sliced and padded there."""
+    n = arr.shape[0]
+    rows = _block(mesh, n, mult)
+    lo, per = rows.start, rows.stop - rows.start
+    hi = min(rows.stop, n)
     if isinstance(arr, torch.Tensor):
         require_device(arr, device, "X")
         block = arr[lo:hi]
@@ -151,6 +168,16 @@ def _stage_replicated(arr: Operand | None, device: torch.device) -> torch.Tensor
         require_device(arr, device, "operand")
         return arr
     return to_device(np.asarray(arr), device)
+
+
+def _stage_padded(arr: Operand, mult: int, device: torch.device) -> torch.Tensor:
+    """All of ``arr``'s rows on ``device``, zero-padded to a multiple of ``mult``."""
+    pad = (-arr.shape[0]) % mult
+    if isinstance(arr, torch.Tensor):
+        require_device(arr, device, "operand")
+        return torch.cat([arr, arr.new_zeros((pad, *arr.shape[1:]))]) if pad else arr
+    arr = np.asarray(arr)
+    return to_device(np.concatenate([arr, np.zeros((pad, *arr.shape[1:]), arr.dtype)]) if pad else arr, device)
 
 
 def _whole_rows(result: dict[str, torch.Tensor], data: Any, n: int) -> dict[str, torch.Tensor]:
@@ -184,11 +211,30 @@ def sharded_primal_fit(
     on every rank, so every rank picks the same γ.
     """
     n = num_samples if num_samples is not None else X.shape[0]
-    num_data = axis_size(mesh, "data")
     device = mesh_device(mesh)
+    X_l, y_l, s_l = (_stage_rows(mesh, a, axis_size(mesh, "data"), device) for a in (X, y, sample_weight))
+    kw = {"is_classifier": is_classifier, "gamma_chunk": gamma_chunk, "sweep_precision": sweep_precision}
+    return _fit_block(mesh, X_l, M_map, b_map, y_l, s_l, gammas, C_emb, n=n, **kw)
+
+
+def _fit_block(
+    mesh: DeviceMesh,
+    X_l: torch.Tensor,
+    M_map: Operand,
+    b_map: Operand,
+    y_l: torch.Tensor,
+    s_l: torch.Tensor,
+    gammas: Operand,
+    C_emb: Operand | None,
+    *,
+    n: int,
+    is_classifier: bool,
+    gamma_chunk: int = 128,
+    sweep_precision: Literal["high", "fast"] = "high",
+) -> dict[str, torch.Tensor]:
+    """:func:`sharded_primal_fit` on this rank's staged block of rows."""
     data = mesh.get_group("data")
-    X_l, y_l, s_l = (_stage_rows(mesh, a, num_data, device) for a in (X, y, sample_weight))
-    M_d, b_d, g_d, C_d = (_stage_replicated(a, device) for a in (M_map, b_map, gammas, C_emb))
+    M_d, b_d, g_d, C_d = (_stage_replicated(a, X_l.device) for a in (M_map, b_map, gammas, C_emb))
     result = primal_fit(
         X_l,
         M_d,
@@ -236,10 +282,32 @@ def sharded_primal_fit_streaming(
     check_sweep_precision(sweep_precision)
     n = num_samples if num_samples is not None else X.shape[0]
     num_data = axis_size(mesh, "data")
-    data = mesh.get_group("data")
     device = mesh_device(mesh)
     row_chunk = streaming_row_chunk(n, num_data, row_chunk)
     X_l, y_l, w_l = (_stage_rows(mesh, a, num_data * row_chunk, device) for a in (X, y, sample_weight))
+    kw = {"is_classifier": is_classifier, "sweep_precision": sweep_precision}
+    return _fit_streaming_block(mesh, X_l, M_map, b_map, y_l, w_l, gammas, C_emb, n=n, row_chunk=row_chunk, **kw)
+
+
+def _fit_streaming_block(
+    mesh: DeviceMesh,
+    X_l: torch.Tensor,
+    M_map: Operand,
+    b_map: Operand,
+    y_l: torch.Tensor,
+    w_l: torch.Tensor,
+    gammas: Operand,
+    C_emb: Operand | None,
+    *,
+    n: int,
+    row_chunk: int,
+    is_classifier: bool,
+    sweep_precision: Literal["high", "fast"] = "high",
+) -> dict[str, torch.Tensor]:
+    """:func:`sharded_primal_fit_streaming` on this rank's staged block of rows, a
+    multiple of ``row_chunk`` high."""
+    data = mesh.get_group("data")
+    device = X_l.device
     M_d, b_d, g_d, C_d = (_stage_replicated(a, device) for a in (M_map, b_map, gammas, C_emb))
     row_sum = partial(collectives.sum_over, group=data)
     num_feature = axis_size(mesh, "feature")
@@ -354,7 +422,66 @@ def sharded_primal_fit_streaming(
     return _whole_rows(result, data, n)
 
 
-_PT_KEYS = ("M", "b", "pt_shift", "pt_scale", "pt_A", "pt_Z", "pt_folded")
+@matmul_precision("ieee")
+def sharded_device_pre_transform(
+    mesh: DeviceMesh,
+    X_block: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    generator: torch.Generator | None = None,
+    *,
+    num_bins: int,
+    num_features: int,
+    edge_sample_size: int,
+    edge_search_multiplier: int,
+    rank_threshold: float,
+    is_classifier: bool,
+    orthogonal: bool = True,
+    draws: dict[str, Any] | None = None,
+) -> dict[str, torch.Tensor]:
+    """``device_pre_transform`` over the row blocks of the ``data`` axis.
+
+    ``X_block`` is this rank's block of rows (``_stage_rows``), and ``y`` and ``w`` are all
+    rows, zero-padded as X's blocks are (``len(y)`` is the data axis times the block's
+    height), on this rank's device. Every sum over X's rows is completed over ``data``: the
+    bin masses and medians' bisection, the neighbouring values, the deviations, and each
+    sampled row, which only the rank that holds it fills. The bins, their masses and the
+    row draws use y and w alone, so every rank has them whole and alike. The random inputs
+    come from ``draws`` where given (the same on every rank), else from ``generator`` on
+    the first rank of the world, once, and are sent to every rank, so the mesh draws what
+    one GPU with that generator draws. Every rank returns the same operands.
+    """
+    height, num_data = X_block.shape[0], axis_size(mesh, "data")
+    if y.shape[0] != num_data * height or w.shape[0] != y.shape[0]:
+        msg = f"y and w must hold the {num_data} blocks of {height} rows: {y.shape[0]} and {w.shape[0]} rows."
+        raise ValueError(msg)
+    settings = {
+        "num_bins": num_bins,
+        "num_features": num_features,
+        "edge_sample_size": edge_sample_size,
+        "edge_search_multiplier": edge_search_multiplier,
+        "is_classifier": is_classifier,
+        "orthogonal": orthogonal,
+    }
+    if draws is None:
+        shapes = draw_shapes(X_block.shape[1], **settings)
+        if dist.get_rank() == 0:
+            draws = draw_pretransform_inputs(generator, shapes, X_block.dtype, X_block.device)
+        else:
+            draws = {k: X_block.new_empty(shape) for k, shape in shapes.items()}
+        draws = {k: collectives.broadcast_from_first(v, None) for k, v in draws.items()}
+    data = mesh.get_group("data")
+    return device_pre_transform(
+        X_block,
+        y,
+        w,
+        draws=draws,
+        rank_threshold=rank_threshold,
+        row_sum=partial(collectives.sum_over, group=data),
+        row_gather=partial(collectives.gather_rows, group=data),
+        row_start=mesh.get_local_rank("data") * height,
+        **settings,
+    )
 
 
 @matmul_precision("ieee")
@@ -377,52 +504,42 @@ def sharded_primal_fit_device_pt(
     row_chunk: int = 16384,
     sweep_precision: Literal["high", "fast"] = "high",
 ) -> dict[str, torch.Tensor]:
-    """Mesh fit with the on-device pre-transform.
+    """Mesh fit with the on-device pre-transform, on each rank's rows.
 
-    The first rank of the world runs ``device_pre_transform`` on all n rows with
-    ``generator`` (the other ranks pass None), exactly as a single-GPU fit with the same
-    seed does, and broadcasts the solver operands ``M``, ``b`` and the fitted ``pt_*``
-    state; then the sharded solver runs on them. The pre-transform is computed on one
-    rank, not row-sharded: that rank holds all of X on its device (the JAX package runs
-    it as one GSPMD program over the row shards). Returns the solver result plus
-    ``pt_M``, ``pt_b`` and the ``pt_*`` state, as the single-GPU route does.
+    Each rank stages its block of X's rows once (the blocks of the fit that follows:
+    padded to ``num_data * row_chunk`` rows when streaming, else to ``num_data``) and all
+    of y and w, padded alike (padding rows carry weight 0, hence the exclusion code). It
+    runs :func:`sharded_device_pre_transform` on them with ``generator``, drawn from on the
+    first rank only, exactly as a single-GPU fit with the same seed draws; then the
+    sharded solver runs on the same block. Returns the solver result plus ``pt_M``,
+    ``pt_b`` and the ``pt_*`` state, as the single-GPU route does, the same on every rank.
     """
+    n = X.shape[0]
+    num_data = axis_size(mesh, "data")
     device = mesh_device(mesh)
-    d = X.shape[1]
-    dtype = X.dtype if isinstance(X, torch.Tensor) else torch_dtype(X.dtype)
-    if dist.get_rank() == 0:
-        X_d = X if isinstance(X, torch.Tensor) else to_device(X, device)
-        pt = device_pre_transform(
-            X_d,
-            _stage_replicated(y, device),
-            _stage_replicated(sample_weight, device),
-            generator,
-            num_bins=num_bins,
-            num_features=num_features,
-            edge_sample_size=edge_sample_size,
-            edge_search_multiplier=edge_search_multiplier,
-            rank_threshold=rank_threshold,
-            is_classifier=is_classifier,
-            orthogonal=orthogonal,
-        )
-        del X_d
-    else:
-        width = num_bins * d
-        shapes = {
-            "M": (d, num_features),
-            "b": (1, num_features),
-            "pt_shift": (1, d),
-            "pt_scale": (1, d),
-            "pt_A": (d, width),
-            "pt_Z": (width, num_features),
-            "pt_folded": (d, num_features),
-        }
-        pt = {key: torch.empty(shapes[key], dtype=dtype, device=device) for key in _PT_KEYS}
-    pt = {key: collectives.broadcast_from_first(pt[key], None) for key in _PT_KEYS}
-    operands = (mesh, X, pt["M"], pt["b"], y, sample_weight, gammas, None)
-    kw = {"is_classifier": is_classifier, "num_samples": X.shape[0], "sweep_precision": sweep_precision}
+    row_chunk = streaming_row_chunk(n, num_data, row_chunk)
+    mult = num_data * row_chunk if stream else num_data
+    X_l = _stage_rows(mesh, X, mult, device)
+    y_all, w_all = (_stage_padded(a, mult, device) for a in (y, sample_weight))
+    pt = sharded_device_pre_transform(
+        mesh,
+        X_l,
+        y_all,
+        w_all,
+        generator,
+        num_bins=num_bins,
+        num_features=num_features,
+        edge_sample_size=edge_sample_size,
+        edge_search_multiplier=edge_search_multiplier,
+        rank_threshold=rank_threshold,
+        is_classifier=is_classifier,
+        orthogonal=orthogonal,
+    )
+    rows = _block(mesh, n, mult)
+    operands = (mesh, X_l, pt["M"], pt["b"], y_all[rows], w_all[rows], gammas, None)
+    kw = {"n": n, "is_classifier": is_classifier, "sweep_precision": sweep_precision}
     if stream:
-        result = sharded_primal_fit_streaming(*operands, row_chunk=row_chunk, **kw)
+        result = _fit_streaming_block(*operands, row_chunk=row_chunk, **kw)
     else:
-        result = sharded_primal_fit(*operands, **kw)
-    return {**result, "pt_M": pt["M"], "pt_b": pt["b"], **{k: pt[k] for k in _PT_KEYS[2:]}}
+        result = _fit_block(*operands, **kw)
+    return {**result, "pt_M": pt["M"], "pt_b": pt["b"], **{k: v for k, v in pt.items() if k.startswith("pt_")}}

@@ -14,6 +14,28 @@ import inspect
 from typing import Any
 
 
+def sklearn_tags(kind: str | None, *, target_required: bool, multi_class: bool = True):  # noqa: ANN201
+    """sklearn's ``Tags`` for an estimator of ``kind`` ("classifier", "regressor",
+    "transformer" or None). Imports scikit-learn, which only its callers need."""
+    from sklearn.utils import (  # noqa: PLC0415
+        ClassifierTags,
+        InputTags,
+        RegressorTags,
+        Tags,
+        TargetTags,
+        TransformerTags,
+    )
+
+    return Tags(
+        estimator_type=kind,
+        target_tags=TargetTags(required=target_required),
+        transformer_tags=TransformerTags() if kind == "transformer" else None,
+        classifier_tags=ClassifierTags(multi_class=multi_class) if kind == "classifier" else None,
+        regressor_tags=RegressorTags() if kind == "regressor" else None,
+        input_tags=InputTags(),
+    )
+
+
 class BaseEstimator:
     """Constructor-parameters-as-configuration base class."""
 
@@ -75,15 +97,6 @@ class BaseEstimator:
     _estimator_kind: str | None = None
 
     def __sklearn_tags__(self):  # noqa: ANN204 - sklearn protocol type lives in sklearn
-        from sklearn.utils import (  # noqa: PLC0415
-            ClassifierTags,
-            InputTags,
-            RegressorTags,
-            Tags,
-            TargetTags,
-            TransformerTags,
-        )
-
         kind = self._estimator_kind
         if kind is None:
             # Derive from the classic sklearn markers: RegressorMixin-style
@@ -93,15 +106,7 @@ class BaseEstimator:
                 kind = derived
             elif hasattr(self, "transform"):
                 kind = "transformer"
-        tags = Tags(
-            estimator_type=kind,
-            target_tags=TargetTags(required=kind in ("classifier", "regressor")),
-            transformer_tags=TransformerTags() if kind == "transformer" else None,
-            classifier_tags=ClassifierTags() if kind == "classifier" else None,
-            regressor_tags=RegressorTags() if kind == "regressor" else None,
-            input_tags=InputTags(),
-        )
-        return tags
+        return sklearn_tags(kind, target_required=kind in ("classifier", "regressor"))
 
     # ------------------------------------------------------- sklearn metadata routing
     # The reference inherits `get_metadata_routing`/`set_{fit,predict,score}_request`

@@ -133,7 +133,7 @@ def _parse_conformal_key(joint_key: str) -> tuple[str, tuple[float, ...]]:
 
 def model_to_state_dict(model: Any) -> dict[str, Any]:
     """Serialise a fitted ``NeoLSSVM`` into a nested dict of arrays and scalars."""
-    # The calibration state a fit defers must land in vars(model) first.
+    # The calibration state a fit defers is made first.
     model._materialize_calibrator()
     model._materialize_conformal_split()
     # Resources of the process (the device, a mesh) are not part of the persisted state:
@@ -164,12 +164,13 @@ def model_to_state_dict(model: Any) -> dict[str, Any]:
         "components": {},
         "conformal": {"l1": {}, "l2": {}},
     }
-    for name, value in vars(model).items():
+    fitted = model._fitted_state()
+    for name, value in fitted.items():
         keep = (name.endswith("_") and not name.startswith("__")) or name in _PRIVATE_STATE
         if keep and name not in _SKIPPED_ATTRS:
             state["attrs"][name] = value
     for comp in _COMPONENTS:
-        obj = vars(model).get(comp)
+        obj = fitted.get(comp)
         if obj is None:
             continue
         state["components"][comp] = _component_state(obj)

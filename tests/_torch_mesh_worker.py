@@ -209,13 +209,64 @@ def _estimator(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
     return out
 
 
+def _pretransform(mesh: Any, case: dict[str, Any]) -> dict[str, Any]:
+    """``sharded_device_pre_transform`` on this rank's block of the case's rows (the
+    injected ``draws``, or a generator seeded with ``seed``), with the X that reaches
+    ``device_pre_transform`` recorded; and the per-bin medians of the rank's block through
+    ``grouped_weighted_median`` with the mesh's hooks."""
+    from functools import partial  # noqa: PLC0415
+
+    from neo_ls_svm_torch.ops.affine import grouped_weighted_median  # noqa: PLC0415
+    from neo_ls_svm_torch.ops.pretransform_device import _target_codes  # noqa: PLC0415
+    from neo_ls_svm_torch.parallel import collectives  # noqa: PLC0415
+    from neo_ls_svm_torch.parallel import mesh as tmesh  # noqa: PLC0415
+
+    cpu = torch.device("cpu")
+    num_data = tmesh.axis_size(mesh, "data")
+    X_l = tmesh._stage_rows(mesh, case["X"], num_data, cpu)
+    y, w = (tmesh._stage_padded(case[k], num_data, cpu) for k in ("y", "w"))
+    seen, real = [], tmesh.device_pre_transform
+
+    def spy(X: torch.Tensor, *args: Any, **kwargs: Any) -> Any:
+        seen.append(X.numpy().copy())
+        return real(X, *args, **kwargs)
+
+    generator = None
+    if case.get("seed") is not None:
+        generator = torch.Generator()
+        generator.manual_seed(case["seed"])
+    tmesh.device_pre_transform = spy
+    try:
+        pt = tmesh.sharded_device_pre_transform(mesh, X_l, y, w, generator, draws=case.get("draws"), **case["kw"])
+    finally:
+        tmesh.device_pre_transform = real
+    data = mesh.get_group("data")
+    num_bins, rows = case["kw"]["num_bins"], tmesh._block(mesh, len(case["y"]), num_data)
+    codes, _ = _target_codes(y, w, num_bins=num_bins, is_classifier=case["kw"]["is_classifier"])
+    medians = grouped_weighted_median(
+        X_l,
+        w[rows],
+        codes[rows],
+        num_bins,
+        row_sum=partial(collectives.sum_over, group=data),
+        row_gather=partial(collectives.gather_rows, group=data),
+    )
+    return {"pt": _arrays(pt), "X_seen": seen, "rows": (rows.start, rows.stop), "medians": medians.numpy()}
+
+
 def mesh_scenarios(rank: int, world: int, workdir: Path, shape: tuple[int, int], cases: dict) -> None:
     """Every case on one ("data", "feature") mesh of ``shape`` over the gloo world."""
     from neo_ls_svm_torch.parallel.mesh import make_mesh  # noqa: PLC0415
 
     _join_group(rank, world, workdir)
     mesh = make_mesh(*shape, device_type="cpu")
-    runners = {"sharded": _sharded, "spied": _spied_streaming, "precision_spied": _precision_spied, "estimator": _estimator}
+    runners = {
+        "sharded": _sharded,
+        "spied": _spied_streaming,
+        "precision_spied": _precision_spied,
+        "estimator": _estimator,
+        "pretransform": _pretransform,
+    }
     results = {name: runners[case["kind"]](mesh, case) for name, case in cases.items()}
     results["mesh_reused"] = make_mesh(*shape, device_type="cpu") is mesh
     _write(workdir, rank, results)

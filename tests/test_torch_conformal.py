@@ -150,21 +150,25 @@ def test_calibration_state_waits_for_its_first_use(task: str) -> None:
     X, y, X_test = _data(task, "primal")
     model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=16), device="cpu").fit(X, y)
     lazy = ("predict_proba_calibrator_", "conformal_l1_", "ŷ_calib_l1_", "sample_weight_calib_l2_")
-    assert not any(name in vars(model) for name in lazy)
+    after_fit = dict(vars(model))
+    assert not any(name in model._fitted_state() for name in lazy)
     model.predict(X_test)
     model.predict_std(X_test)
-    assert not any(name in vars(model) for name in lazy)
+    assert not any(name in model._fitted_state() for name in lazy)
     model.predict_proba(X_test)
-    assert ("predict_proba_calibrator_" in vars(model)) == (task == "classification")
-    assert "conformal_l1_" not in vars(model)
+    assert ("predict_proba_calibrator_" in model._fitted_state()) == (task == "classification")
+    assert "conformal_l1_" not in model._fitted_state()
     assert hasattr(model, "predict_proba_calibrator_") == (task == "classification")
     assert model.ŷ_calib_l1_.shape == (min(1440, max(1024, 2 * len(y) // 3), len(y) - 1),)
-    assert all(name in vars(model) for name in lazy[1:])
+    assert all(name in model._fitted_state() for name in lazy[1:])
+    # What a first use makes is kept beside the fit's inputs: serving leaves the fit's
+    # __dict__ as it was (sklearn's check_dict_unchanged).
+    assert vars(model) == after_fit
     with pytest.raises(AttributeError, match="no_such_attribute_"):
         model.no_such_attribute_  # noqa: B018
     # A refit drops what the last fit left.
     model.fit(X[:1500], y[:1500])
-    assert not any(name in vars(model) for name in lazy)
+    assert not any(name in model._fitted_state() for name in lazy)
     assert model.ŷ_calib_l1_.shape == (1024,)
 
 

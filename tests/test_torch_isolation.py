@@ -1,6 +1,7 @@
 """The port stands alone: neither ``neo_ls_svm_torch`` nor ``chip_smoke.py`` imports JAX
 or the JAX package, at import time or anywhere in their source. The modules of the
-calibration, persistence and multi-GPU layers import no scikit-learn either."""
+calibration, persistence and multi-GPU layers, the package re-exports and the profiling
+helpers import no scikit-learn either."""
 
 import ast
 import subprocess
@@ -29,6 +30,9 @@ NO_SKLEARN = [
     "neo_ls_svm_torch/parallel/collectives.py",
     "neo_ls_svm_torch/parallel/mesh.py",
     "neo_ls_svm_torch/parallel/distributed.py",
+    "neo_ls_svm_torch/ops/__init__.py",
+    "neo_ls_svm_torch/models/__init__.py",
+    "neo_ls_svm_torch/utils/profiling.py",
     "chip_smoke.py",
 ]
 
@@ -77,6 +81,10 @@ def test_importing_the_port_loads_no_jax() -> None:
         "neo_ls_svm_torch.parallel.collectives",
         "neo_ls_svm_torch.parallel.mesh",
         "neo_ls_svm_torch.parallel.distributed",
+        "neo_ls_svm_torch.ops",
+        "neo_ls_svm_torch.models",
+        "neo_ls_svm_torch.utils.metrics",
+        "neo_ls_svm_torch.utils.profiling",
     ]
     code = (
         "import importlib, sys\n"

@@ -11,23 +11,34 @@ versions; the JAX side runs its Pallas kernels in interpret mode for that compar
 Under ``precision="fast"`` the ranks record which products run under TF32 and which
 ``precision`` K2 is given: every mesh route must carry it, and only the sweep's products
 may enter the TF32 scope (on the CPU the fit then equals the "high" fit bit for bit).
+The device pre-transform runs on each rank's block of rows: with the same draws it is held
+to ``device_pre_transform`` on all rows and to the JAX ``device_pre_transform`` (its draws
+injected) in float64 at rtol 1e-9, its per-bin medians bit-equal with unit weights, and a
+spy shows that each rank's pre-transform saw only its own rows.
 """
 
 import pickle
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from neo_ls_svm_torch import NeoLSSVM
+from neo_ls_svm_torch.ops import affine as t_affine
+from neo_ls_svm_torch.ops import pretransform_device as t_pt
 from neo_ls_svm_torch.parallel import mesh as tmesh
 from neo_ls_svm_tpu import NeoLSSVM as JaxNeoLSSVM
 from neo_ls_svm_tpu.models import estimator as jax_est
 from neo_ls_svm_tpu.models.primal import gamma_grid, primal_fit
+from neo_ls_svm_tpu.ops import pretransform_device as j_pt
 from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
 from neo_ls_svm_tpu.parallel import mesh as jmesh
 
 from . import _torch_mesh_worker as worker
 from .conftest import make_classification_dataset, make_regression_dataset
+from .test_torch_pretransform_device import PT_KW, _column_signs, _data, _jax_draws
 
 INMEMORY = {"rtol": 1e-7}
 STREAMING = {"rtol": 1e-6, "atol": 1e-12}
@@ -57,9 +68,59 @@ def _sharded_case(route: str, n: int, seed: int, **kw) -> dict:
 
 def _estimator_case(n: int, seed: int, **kw) -> dict:
     X, y = make_regression_dataset(n=n, seed=seed)
+    dtype = kw.pop("dtype", None)
+    if dtype is not None:
+        X, y = X.astype(dtype), y.astype(dtype)
     if kw.pop("positive", False):
         y = np.abs(y) + 10.0  # price-like positive target (conformal coverage convention)
     return {"kind": "estimator", "X": X, "y": y, **kw}
+
+
+def _pretransform_case(task: str, n: int, seed: int, *, unit_weights: bool = False, jax_draws: bool = False) -> dict:
+    """Rows for the sharded device pre-transform: the JAX package's draws (and its result)
+    from a key, or a torch generator's seed."""
+    X, y, w = _data(task, seed, n)
+    if unit_weights:
+        w = np.ones(n)
+    kw = {**PT_KW, "num_bins": 2 if task == "classification" else 8, "is_classifier": task == "classification"}
+    case = {"kind": "pretransform", "X": X, "y": y, "w": w, "kw": kw, "seed": seed}
+    if jax_draws:
+        key = jax.random.PRNGKey(seed)
+        jx = j_pt.device_pre_transform(jnp.asarray(X), jnp.asarray(y), jnp.asarray(w), key, **kw)
+        case["jax"] = {k: np.asarray(v) for k, v in jx.items()}
+        ess = int(kw["edge_sample_size"] * 4 / 3) if kw["is_classifier"] else kw["edge_sample_size"]
+        draws = _jax_draws(key, kw["num_bins"], ess, kw["edge_search_multiplier"])
+        # pt_Z's blocks are orthonormal before the χ rescale: its squared column norms are χ².
+        draws["chi"] = np.sum(case["jax"]["pt_Z"] ** 2, axis=0, keepdims=True)
+        case.update(draws=draws, seed=None)
+    return case
+
+
+def _one_device_pretransform(case: dict) -> dict:
+    """``device_pre_transform`` on all of the case's rows, with its draws or its seed."""
+    generator = None
+    if case["seed"] is not None:
+        generator = torch.Generator()
+        generator.manual_seed(case["seed"])
+    X, y, w = (torch.from_numpy(case[k]) for k in ("X", "y", "w"))
+    out = t_pt.device_pre_transform(X, y, w, generator, draws=case.get("draws"), **case["kw"])
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _assert_pretransform_close(ours: dict, theirs: dict, **tol) -> None:
+    """The operands of two pre-transforms alike, whatever signs eigh gave A's columns and
+    qr gave Z's: A and Z after one sign rule, and the fold from their A and Z with our signs."""
+    np.testing.assert_allclose(ours["pt_shift"], theirs["pt_shift"], err_msg="shift", **tol)
+    np.testing.assert_allclose(ours["pt_scale"], theirs["pt_scale"], err_msg="scale", **tol)
+    signs_A = _column_signs(ours["pt_A"]) * _column_signs(theirs["pt_A"])
+    signs_Z = _column_signs(ours["pt_Z"]) * _column_signs(theirs["pt_Z"])
+    np.testing.assert_allclose(ours["pt_A"], theirs["pt_A"] * signs_A, err_msg="A", **tol)
+    np.testing.assert_allclose(ours["pt_Z"], theirs["pt_Z"] * signs_Z, err_msg="Z", **tol)
+    folded = (theirs["pt_A"] * signs_A) @ (theirs["pt_Z"] * signs_Z)
+    inv_scale = 1.0 / theirs["pt_scale"][0]
+    np.testing.assert_allclose(ours["pt_folded"], folded, err_msg="folded", **tol)
+    np.testing.assert_allclose(ours["M"], folded * inv_scale[:, None], err_msg="M", **tol)
+    np.testing.assert_allclose(ours["b"], -(theirs["pt_shift"] * inv_scale) @ folded, err_msg="b", **tol)
 
 
 def _jax_sharded(case: dict, shape: tuple[int, int], **kw) -> dict:
@@ -104,6 +165,10 @@ def cases_41() -> dict:
         "device_pt_streaming": _estimator_case(
             1500, 45, params={"pre_transform": "device"}, streaming_bytes_threshold=1
         ),
+        "device_pt_single_f32": _estimator_case(
+            1500, 45, mesh=False, params={"pre_transform": "device"}, dtype=np.float32
+        ),
+        "device_pt_inmemory_f32": _estimator_case(1500, 45, params={"pre_transform": "device"}, dtype=np.float32),
         "estimator_fast": _estimator_case(1500, 42, params={"precision": "fast"}, record=True),
         "estimator_streaming_fast": _estimator_case(
             1500, 44, params={"precision": "fast"}, streaming_bytes_threshold=1, record=True
@@ -111,6 +176,9 @@ def cases_41() -> dict:
         "device_pt_streaming_fast": _estimator_case(
             1500, 45, params={"pre_transform": "device", "precision": "fast"}, streaming_bytes_threshold=1, record=True
         ),
+        "pt_weighted": _pretransform_case("regression", 1502, 11, jax_draws=True),
+        "pt_classifier": _pretransform_case("classification", 1500, 12, jax_draws=True),
+        "pt_unit": _pretransform_case("regression", 1502, 13, unit_weights=True),
     }
 
 
@@ -121,7 +189,11 @@ def ranks_41(cases_41, tmp_path_factory) -> list[dict]:
 
 @pytest.fixture(scope="module")
 def cases_22() -> dict:
-    return {"inmemory": _sharded_case("inmemory", 1500, 41), "streaming": _sharded_case("streaming", 1500, 43)}
+    return {
+        "inmemory": _sharded_case("inmemory", 1500, 41),
+        "streaming": _sharded_case("streaming", 1500, 43),
+        "pt_unit": _pretransform_case("regression", 1502, 13, unit_weights=True),
+    }
 
 
 @pytest.fixture(scope="module")
@@ -269,6 +341,61 @@ def test_make_mesh_is_built_once_per_group_and_shape(spawned, shape) -> None:
     assert [rank["mesh_reused"] for rank in ranks] == [True] * 4
 
 
+PRETRANSFORM = {"rtol": 1e-9, "atol": 1e-12}
+
+
+@pytest.mark.parametrize(
+    ("shape", "name"), [((4, 1), "pt_weighted"), ((4, 1), "pt_classifier"), ((4, 1), "pt_unit"), ((2, 2), "pt_unit")]
+)
+def test_sharded_pretransform_matches_one_device(spawned, shape, name) -> None:
+    """Each rank's pre-transform on its block, with the draws of one device (injected, or
+    a generator's drawn on the first rank and sent), equals ``device_pre_transform`` on all
+    rows in float64 at rtol 1e-9, and every rank holds the same bits. On (2, 2) the sums
+    run over ``data`` and the two ranks of a ``feature`` group hold the same block."""
+    cases, ranks = spawned(shape)
+    _assert_pretransform_close(ranks[0][name]["pt"], _one_device_pretransform(cases[name]), **PRETRANSFORM)
+    for other in ranks[1:]:
+        for key, value in ranks[0][name]["pt"].items():
+            np.testing.assert_array_equal(other[name]["pt"][key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["pt_weighted", "pt_classifier"])
+def test_sharded_pretransform_matches_jax(cases_41, ranks_41, name) -> None:
+    """The sharded pre-transform against the JAX ``device_pre_transform`` from the key
+    whose draws it was given, in float64 at rtol 1e-9."""
+    _assert_pretransform_close(ranks_41[0][name]["pt"], cases_41[name]["jax"], **PRETRANSFORM)
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_sharded_medians_are_bit_equal_with_unit_weights(spawned, shape) -> None:
+    """With unit weights every mass of the bisection is an exact integer, so the per-bin
+    medians of the row blocks are one device's to the last bit."""
+    cases, ranks = spawned(shape)
+    case = cases["pt_unit"]
+    X, y, w = (torch.from_numpy(case[k]) for k in ("X", "y", "w"))
+    num_bins = case["kw"]["num_bins"]
+    codes, _ = t_pt._target_codes(y, w, num_bins=num_bins, is_classifier=False)
+    single = t_affine.grouped_weighted_median(X, w, codes, num_bins).numpy()
+    for rank in ranks:
+        np.testing.assert_array_equal(rank["pt_unit"]["medians"], single)
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_each_rank_pretransforms_only_its_rows(spawned, shape) -> None:
+    """A spy on ``device_pre_transform``: each rank passed it exactly its block of X's
+    rows (1502 rows: padded with zeros to 1504 on (4, 1), blocks of 376; blocks of 751 on
+    (2, 2))."""
+    cases, ranks = spawned(shape)
+    X = cases["pt_unit"]["X"]
+    X_pad = np.vstack([X, np.zeros((tmesh.required_padding(len(X), shape[0]), X.shape[1]))])
+    per = len(X_pad) // shape[0]
+    for index, rank in enumerate(ranks):
+        lo = (index // shape[1]) * per
+        assert rank["pt_unit"]["rows"] == (lo, lo + per)
+        (seen,) = rank["pt_unit"]["X_seen"]
+        np.testing.assert_array_equal(seen, X_pad[lo : lo + per])
+
+
 @pytest.mark.parametrize("num_data", [1, 2, 3, 4, 8])
 def test_padding_and_row_chunk_match_jax(num_data) -> None:
     for n in (1, 7, 1500, 1504, 16384, 100_003):
@@ -328,16 +455,31 @@ def test_mesh_auto_in_a_world_of_four_matches_an_explicit_mesh(ranks_41) -> None
 
 @pytest.mark.parametrize("route", ["inmemory", "streaming"])
 def test_device_pretransform_mesh_route_matches_single_device(ranks_41, route) -> None:
-    """The first rank runs the device pre-transform with the single-device route's seed
-    and sends M and b: bit-equal to the single-device fit's, and γ equal."""
+    """The ranks run the device pre-transform on their own rows with the draws of the
+    single-device route's seed (drawn on the first rank and sent): M and b equal to the
+    single-device fit's up to the order of the deviations' sums (rtol 1e-12; the medians
+    are exact with unit weights), and γ equal."""
     ours, single = ranks_41[0][f"device_pt_{route}"], ranks_41[0]["device_pt_single"]
     assert ours["pre_transform"] == single["pre_transform"] == "device"
-    np.testing.assert_array_equal(ours["M_map"], single["M_map"])
-    np.testing.assert_array_equal(ours["b_map"], single["b_map"])
+    np.testing.assert_allclose(ours["M_map"], single["M_map"], rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(ours["b_map"], single["b_map"], rtol=1e-12, atol=1e-12)
     assert ours["gamma"] == single["gamma"]
     np.testing.assert_allclose(ours["predict"], single["predict"], rtol=1e-6, atol=1e-12)
     for other in ranks_41[1:]:
         np.testing.assert_array_equal(other[f"device_pt_{route}"]["loo_residuals"], ours["loo_residuals"])
+
+
+def test_device_pretransform_mesh_route_is_bit_equal_in_f32(ranks_41) -> None:
+    """In f32 the deviations' float64 sums round to one device's σ, and every other input
+    of M and b is exact or replicated: the ranks' M and b equal the single-device fit's to
+    the bit. (The solver after them sums its f32 Gram in the ranks' order, so γ may not.)"""
+    ours, single = ranks_41[0]["device_pt_inmemory_f32"], ranks_41[0]["device_pt_single_f32"]
+    assert ours["pre_transform"] == single["pre_transform"] == "device"
+    assert ours["M_map"].dtype == single["M_map"].dtype == np.float32
+    np.testing.assert_array_equal(ours["M_map"], single["M_map"])
+    np.testing.assert_array_equal(ours["b_map"], single["b_map"])
+    for other in ranks_41[1:]:
+        np.testing.assert_array_equal(other["device_pt_inmemory_f32"]["M_map"], ours["M_map"])
 
 
 def test_transfer_narrowing_with_a_mesh_raises(ranks_41) -> None:

@@ -141,6 +141,22 @@ def test_normalizer_stats_device_matches_jax(case: str) -> None:
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=rtol, atol=rtol, err_msg=name)
 
 
+@pytest.mark.parametrize("case", ["float64", "float32"])
+def test_normalizer_deviation_blocks_change_no_bit(case: str, monkeypatch) -> None:
+    """The deviations' float64 sums taken a few rows at a time round to the σ of one
+    block (float32), and stay within 1e-13 of it (float64)."""
+    X, w, codes, num_bins, _ = _stats_case(case)
+    totals = _t(np.array([w[codes == b].sum() for b in range(num_bins)], X.dtype))
+    whole = t_affine._normalizer_stats_device(_t(X), _t(w), _t(codes), totals, num_bins=num_bins)
+    monkeypatch.setattr(t_affine, "DEVIATION_ROWS", 7)
+    blocks = t_affine._normalizer_stats_device(_t(X), _t(w), _t(codes), totals, num_bins=num_bins)
+    for a, b, name in zip(blocks, whole, ("shift", "scale")):
+        if case == "float32":
+            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13, err_msg=name)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_ordered_int_round_trip_keeps_order(dtype) -> None:
     x = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-30, 2.0, np.inf], dtype)
@@ -326,3 +342,34 @@ def test_no_host_read_of_a_tensor_value(function) -> None:
     source = inspect.getsource(function)
     for call in (".item(", ".cpu(", ".numpy(", ".tolist(", "bool(", "float(t", "int(t", ".nonzero(", "torch.unique("):
         assert call not in source, f"{function.__name__} calls {call}"
+
+
+@pytest.mark.parametrize("orthogonal", [True, False])
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_generator_draws_are_the_draw_functions(task: str, orthogonal: bool) -> None:
+    """A generator-driven pre-transform equals the same call given the inputs that
+    ``draw_pretransform_inputs`` draws from that seed, bit for bit, and leaves the generator
+    where that function does. The draw order is the one the pre-transform has always
+    consumed: per bin its edge sample, complement and pool uniforms, then Z, then the χ
+    normals (orthogonal maps only)."""
+    X, y, w = _data(task)
+    is_classifier = task == "classification"
+    kw = {**PT_KW, "num_bins": 2 if is_classifier else 8, "is_classifier": is_classifier, "orthogonal": orthogonal}
+    generators = [torch.Generator().manual_seed(42) for _ in range(3)]
+    from_generator = t_pt.device_pre_transform(_t(X), _t(y), _t(w), generators[0], **kw)
+    shapes = t_pt.draw_shapes(D_IN, **{k: v for k, v in kw.items() if k != "rank_threshold"})
+    draws = t_pt.draw_pretransform_inputs(generators[1], shapes, torch.float64, torch.device("cpu"))
+    injected = t_pt.device_pre_transform(_t(X), _t(y), _t(w), None, draws=draws, **kw)
+    for key, value in from_generator.items():
+        np.testing.assert_array_equal(injected[key].numpy(), value.numpy(), err_msg=key)
+    assert torch.equal(generators[0].get_state(), generators[1].get_state())
+    # The same draws, call by call, in the order written out.
+    ess, m = shapes["bin_sample"][1], shapes["complement"][1]
+    gen = generators[2]
+    rows = [[torch.rand(k, generator=gen, dtype=torch.float64) for k in (ess, m, m)] for _ in range(kw["num_bins"])]
+    for i, name in enumerate(("bin_sample", "complement", "bin_pool")):
+        np.testing.assert_array_equal(draws[name].numpy(), torch.stack([r[i] for r in rows]).numpy(), err_msg=name)
+    for name in ("Z", "chi_normals")[: 1 + orthogonal]:
+        again = torch.randn(shapes[name], generator=gen, dtype=torch.float64)
+        np.testing.assert_array_equal(draws[name].numpy(), again.numpy(), err_msg=name)
+    assert sorted(draws) == sorted(shapes)

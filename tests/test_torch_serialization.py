@@ -100,7 +100,7 @@ def test_round_trip_predicts_bit_for_bit(task: str, route: str, how: str) -> Non
 def test_state_dict_of_a_fresh_fit_makes_the_deferred_calibration_state(task: str) -> None:
     X, y, X_test = _data(task, "primal")
     model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=16), device="cpu").fit(X, y)
-    assert "conformal_l1_" not in vars(model)
+    assert "conformal_l1_" not in model._fitted_state()
     state = model.to_state_dict()
     assert all(name in state["attrs"] for name in CALIB)
     assert ("predict_proba_calibrator_" in state["components"]) == (task == "classification")
