@@ -8,20 +8,22 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 2. ``gram``: kernel K1 at n = 131,072, d = 32, D = 512 against its plain PyTorch version
    (f32 kernel vs f64 plain: max_ij |ΔG_ij|/√(G_ii·G_jj) ≤ 2e-6; f64 vs f64: ≤ 1e-11),
    with times. The f32 call must go through the 3×TF32 tensor-core path and the f64 call
-   through the CUDA-core path (the wrappers count launches by path).
+   through the FP64 tensor-core (DMMA) path (the wrappers count launches by path).
 3. ``sweep``: kernel K2 on the same rows, with Qs, λ and k from a real eigendecomposition
    of that Gram and r_all over the 1024-point γ grid, for a regressor and a classifier
    (f32 vs f64 plain: max relative error ≤ 1e-4 and the kernel's argmin within 1e-5 of
-   the plain minimum; f64 vs f64: ≤ 1e-10), with times. K2's one-pass path
+   the plain minimum; f64 vs f64: ≤ 1e-10), with times (the f64 kernel's as ``ms_f64``).
+   K2's one-pass path
    (``precision="fast"``) on the same tensors, timed beside the 3×TF32 path: LOO error
    within 2e-4 relative of f64, a regressor's objective within 1e-4 (or, where a torch
    emulation of the kernel's rounding on the same inputs is itself further from f64,
    within 2× the emulation's distance: ``check_sweep_fast``), the f64 objective at its
    argmin within 1e-3 of the minimum, and at least 10× the 3×TF32 path's error.
-   ``ragged``: both kernels at shapes that are multiples of nothing, and at D = 1800, which
-   takes the f64 sweep's smaller row groups and shows that the f32 sweep has no
-   shared-memory limit on D, under the same tolerances; the one-pass path at the f32
-   shapes, within 2e-4 or within 2× a torch emulation of its own rounding.
+   ``ragged``: both kernels at shapes that are multiples of nothing, at D = 1800, and in
+   f64 at D = 4096 (2M = 8194, which the CUDA-core f64 sweep before the DMMA kernels
+   refused): neither sweep has a shared-memory limit on D. Under the same tolerances; the
+   one-pass path at the f32 shapes, within 2e-4 or within 2× a torch emulation of its own
+   rounding.
 4. ``parity_small``: a small float64 streaming fit on the card (both kernels) against the
    same fit with ``device="cpu"`` (plain versions): γ equal, LOO arrays at rtol 1e-6.
 5. ``fit_1m``: the main path — the default ``NeoLSSVM().fit`` on 1,048,576 × 32 float32
@@ -49,6 +51,13 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
    scope: every fit and serving call leaves the caller's ``fp32_precision`` as it found
    it, and a "high" model's ``predict_std`` and ``decision_function`` are bit-equal with
    the caller's TF32 on and off, also after a pickle and a state-dict round trip.
+   ``fit_1m_f64``: the 1M rows handed over as float64 (``make_dataset(1 << 20, 32,
+   dtype=np.float64)``) through the default ``NeoLSSVM()``: float64 input fits in float64
+   and streams from 261,633 rows, so the device pre-transform and K1 and K2 once each on
+   the f64 (DMMA) path, counted from 0; LOO R² within 0.03 of 0.7533; first-call and
+   repeat seconds; each kernel held to its plain version on the fit's own tensors (1e-11,
+   1e-10) and timed there against its bound, K1 also against ``torch.matmul`` in float64;
+   the 262,144-row f64 fit (streaming) timed beside the 261,632-row one (in memory).
 6. ``pretransform``: ``device_pre_transform`` alone on those rows, timed; its shift and scale
    against the host ``AffineNormalizer`` on the same equal-mass bins (1e-4 of the scale),
    and the rows in each of the 8 bins.
@@ -108,7 +117,7 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
     of them with the checks of (c). Four ranks on one card say nothing of scaling.
     ``python3 chip_smoke.py mesh`` runs the build and this phase only.
 
-Then a ``kernels`` line (K1, K2 and K2's one-pass path), the card's name and power limit
+Then a ``kernels`` line (K1, K2, K2's one-pass path, K1 f64 and K2 f64), the card's name and power limit
 as ``nvidia-smi`` reports them, and the result line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 
@@ -178,11 +187,17 @@ N_KERNEL, D_IN, D_FEAT = 131_072, 32, 512
 # rows each block sums: 7.2e-7 at 131k rows and 5.5e-6 at the 1M fit's 8× longer sums, on
 # an H100 SXM, where the row split is fixed by the card's 132 SMs.
 GRAM_TOL_F32, GRAM_TOL_F32_1M = 2e-6, 1e-5
+# The float64 kernels against their float64 plain versions: the Gram per entry, as above,
+# and the sweep's LOO error and objective (relative, elementwise).
+GRAM_TOL_F64, SWEEP_TOL_F64 = 1e-11, 1e-10
 
 # Data-sheet peaks of the H100 SXM, dense: TF32 on the tensor cores, FP32 on the CUDA
 # cores, and HBM3 bandwidth. bound_ms on another card needs that card's peaks, so the
 # script refuses it.
 CARD, TF32_TFLOPS, FP32_TFLOPS, HBM_TBS = "NVIDIA H100 80GB HBM3", 495.0, 67.0, 3.35
+# The same data sheet's float64 peaks: the FP64 tensor cores (DMMA) and FP64 FMAs on the
+# CUDA cores.
+FP64_TC_TFLOPS, FP64_TFLOPS = 67.0, 34.0
 
 
 def make_dataset(n: int, d: int, seed: int = 0, dtype=np.float32):
@@ -261,6 +276,26 @@ def bound(ops: float, nbytes: float, workspace_bytes: float, passes: int = 3) ->
     }
 
 
+def bound_f64(ops: float, nbytes: float, workspace_bytes: float) -> dict:
+    """The least time for ``ops`` f64 operations and ``nbytes`` of inputs and outputs.
+
+    ``bound_ms`` is the larger of the operations on the FP64 tensor cores (67 TFLOP/s) and
+    the bytes at 3.35 TB/s; ``fp64_cuda_core_bound_ms`` the same with the operations on the
+    CUDA cores' FP64 FMAs (34 TFLOP/s), the basis of the kernels they replaced. The row
+    chunks' workspace, written once and read once, is reported beside them as
+    ``workspace_ms`` at the HBM rate.
+    """
+    ops_ms = ops / (FP64_TC_TFLOPS * 1e9)
+    bytes_ms = nbytes / (HBM_TBS * 1e9)
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "fp64_cuda_core_bound_ms": max(ops / (FP64_TFLOPS * 1e9), bytes_ms),
+        "workspace_ms": workspace_bytes / (HBM_TBS * 1e9),
+        "path": _build.PATH_FP64,
+    }
+
+
 def time_ms(fn, reps: int = 5) -> float:
     """Median device time of ``fn`` over ``reps`` runs after one warm-up (CUDA events)."""
     fn()
@@ -296,14 +331,17 @@ def gram_err(G: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return float(diff.max()), float((diff / (scale[:, None] * scale[None, :])).max())
 
 
-def gram_timings(args32: list[torch.Tensor]) -> dict:
-    """K1's, its plain version's and the yardstick's times on these f32 inputs, and its bound."""
-    X, M_map, b_map, s2, y = args32
+def gram_timings(args: list[torch.Tensor]) -> dict:
+    """K1's, its plain version's and the yardstick's times on these f32 or f64 inputs, and
+    its bound."""
+    X, M_map, b_map, s2, y = args
     n, d = X.shape
     D = M_map.shape[1]
     K = 2 * D + 2
-    # The yardstick: one cuBLAS product on a precomputed feature block, in IEEE FP32: the
-    # caller's TF32 is on in this script, so the yardstick enters the IEEE scope itself.
+    f64 = X.dtype == torch.float64
+    # The yardstick: one cuBLAS product on a precomputed feature block, in IEEE FP32 (the
+    # caller's TF32 is on in this script, so the yardstick enters the IEEE scope itself)
+    # or in float64.
     with matmul_precision("ieee"):
         U = X @ M_map + b_map.reshape(1, -1)
     Y = torch.cat(
@@ -318,31 +356,34 @@ def gram_timings(args32: list[torch.Tensor]) -> dict:
             return torch.matmul(Y.T, s2_col * Y)
 
     record = {
-        "ms": time_ms(lambda: gram_mod.fused_augmented_gram(*args32)),
-        "plain_ms": time_ms(lambda: gram_mod.gram_plain(*args32)),
+        "ms": time_ms(lambda: gram_mod.fused_augmented_gram(*args)),
+        "plain_ms": time_ms(lambda: gram_mod.gram_plain(*args)),
         "library_ms": time_ms(library),
-        "library": "torch.matmul(Y.T, s2·Y) on the built features, IEEE FP32 (TF32 off)",
+        "library": "torch.matmul(Y.T, s2·Y) on the built features, "
+        + ("float64" if f64 else "IEEE FP32 (TF32 off)"),
     }
     ops = n * K * (K + 1) + 2 * n * d * D  # upper triangle + phases
     nbytes = X.element_size() * (n * d + 2 * n + d * D + D + K * K)
     F = -(-K // 128) * 128
-    workspace = 4 * 2 * (2 * F * (-(-n // 32) * 32))  # sYᵀ hi and lo, written and read
     shape = {"n": n, "d": d, "D": D, "dtype": str(X.dtype)[6:]}
+    if f64:  # sYᵀ in one f64 plane, written and read
+        return {**record, **bound_f64(ops, nbytes, 8 * 2 * F * (-(-n // 32) * 32)), "shape": shape}
+    workspace = 4 * 2 * (2 * F * (-(-n // 32) * 32))  # sYᵀ hi and lo, written and read
     return {**record, **bound(ops, nbytes, workspace), "shape": shape}
 
 
-def sweep_timings(args32: list[torch.Tensor], kw: dict, precision: str = "high") -> dict:
-    """K2's and its plain version's times on these f32 inputs at ``precision``, and its
-    bound. Under "fast" the plain version runs its Gu, num and lev products in cuBLAS TF32,
-    the one pass the kernel takes."""
-    X, M_map = args32[0], args32[1]
+def sweep_timings(args: list[torch.Tensor], kw: dict, precision: str = "high") -> dict:
+    """K2's and its plain version's times on these f32 or f64 inputs at ``precision``, and
+    its bound. Under "fast" the f32 plain version runs its Gu, num and lev products in cuBLAS
+    TF32, the one pass the kernel takes."""
+    X, M_map = args[0], args[1]
     n, d = X.shape
     D = M_map.shape[1]
-    M2, G = args32[7].shape
+    M2, G = args[7].shape
     kw = {k: v for k, v in kw.items() if k != "precision"}  # a recorded call's own precision
     record = {
-        "ms": time_ms(lambda: sweep_mod.fused_loo_sweep(*args32, **kw, precision=precision)),
-        "plain_ms": time_ms(lambda: sweep_mod.sweep_plain(*args32, **kw, precision=precision)),
+        "ms": time_ms(lambda: sweep_mod.fused_loo_sweep(*args, **kw, precision=precision)),
+        "plain_ms": time_ms(lambda: sweep_mod.sweep_plain(*args, **kw, precision=precision)),
         "library_ms": None,  # no single PyTorch call computes the LOO sweep
     }
     ops = 2 * n * M2 * M2 + 4 * n * M2 * G + 2 * n * d * D
@@ -353,6 +394,9 @@ def sweep_timings(args32: list[torch.Tensor], kw: dict, precision: str = "high")
     planes = 2 if precision == "high" else 1
     workspace = 4 * 2 * planes * Kp * (3 * n + Np + Gp)
     shape = {"n": n, "d": d, "D": D, "G": G, "dtype": str(X.dtype)[6:]}
+    if X.dtype == torch.float64:  # one f64 plane, k to 16, γ to 64
+        Kp, Gp = -(-M2 // 16) * 16, -(-G // 64) * 64
+        return {**record, **bound_f64(ops, nbytes, 8 * 2 * Kp * (3 * n + Np + Gp)), "shape": shape}
     return {**record, **bound(ops, nbytes, workspace, 3 if precision == "high" else 1), "shape": shape}
 
 
@@ -433,7 +477,7 @@ def phase_gram(dev: torch.device) -> dict:
     abs32, rel32 = gram_err(G32, plain64)
     _, rel64 = gram_err(G64, plain64)
     check(math.isfinite(rel32) and rel32 <= GRAM_TOL_F32, f"gram f32: max|ΔG_ij|/√(G_ii·G_jj) = {rel32}")
-    check(rel64 <= 1e-11, f"gram f64: max|ΔG_ij|/√(G_ii·G_jj) = {rel64}")
+    check(rel64 <= GRAM_TOL_F64, f"gram f64: max|ΔG_ij|/√(G_ii·G_jj) = {rel64}")
     emit({
         "phase": "gram",
         "max_abs_err": abs32,
@@ -463,8 +507,9 @@ def _sweep_inputs(G: torch.Tensor, n: int, D: int, num_gammas: int) -> dict:
 
 
 def phase_ragged(dev: torch.device) -> None:
-    """Both kernels at shapes that are multiples of nothing (the masked edges), and at a
-    width that takes the f64 sweep's smaller row groups, against their plain versions.
+    """Both kernels at shapes that are multiples of nothing (the masked edges), and at wide
+    D (1800 in both dtypes; 4096 in f64, which the CUDA-core f64 sweep that the DMMA kernel
+    replaced refused for shared memory), against their plain versions.
     Each case also reports how far the f32 plain version's sweep is from float64, the
     yardstick for the f32 kernel's error. K2's one-pass path runs at the f32 shapes too,
     under :func:`check_sweep_fast` with the torch emulation of its rounding on the same
@@ -473,10 +518,12 @@ def phase_ragged(dev: torch.device) -> None:
     results = []
     # At D = 1800 the f32 case takes 20,011 rows: at 4,099 rows the leverages of 2M = 3602
     # features come so close to 1 that even the f32 plain version is far off float64
-    # (its sweep_plain_f32_rel_err), a property of the data, not of the kernel.
+    # (its sweep_plain_f32_rel_err), a property of the data, not of the kernel. The f64
+    # case at D = 4096 (2M = 8194) keeps the 4,099-row case's ratio of rows to 2M, 1.14.
     for n, d, D, G, dtypes in ((3001, 7, 100, 1001, (torch.float32, torch.float64)),
                                (4099, 5, 1800, 130, (torch.float64,)),
-                               (20011, 5, 1800, 130, (torch.float32,))):
+                               (20011, 5, 1800, 130, (torch.float32,)),
+                               (9337, 5, 4096, 77, (torch.float64,))):
         gen = np.random.RandomState(n)
         X = gen.randn(n, d)
         M_map = gen.randn(d, D)
@@ -508,7 +555,7 @@ def phase_ragged(dev: torch.device) -> None:
             err_p, obj_p = sweep_mod.sweep_plain(*(a.double() for a in sweep_args), **kw)
             torch.cuda.synchronize()
             sweep_rel = max(rel_err(err_k, err_p)[1], rel_err(obj_k, obj_p)[1])
-            tol_gram, tol_sweep = (GRAM_TOL_F32, 1e-4) if dtype == torch.float32 else (1e-11, 1e-10)
+            tol_gram, tol_sweep = (GRAM_TOL_F32, 1e-4) if dtype == torch.float32 else (GRAM_TOL_F64, SWEEP_TOL_F64)
             tag = f"ragged n={n} d={d} D={D} G={G} {dtype}"
             check(gram_rel <= tol_gram, f"{tag}: gram relative error {gram_rel}")
             check(sweep_rel <= tol_sweep, f"{tag}: sweep relative error {sweep_rel}")
@@ -612,9 +659,10 @@ def phase_sweep(data: dict) -> None:
         fast[task] = check_sweep_fast(err1, obj1, perr, pobj, rel_err(err32, perr)[1], is_classifier, task, emulated)
         for ours, ref in ((err64, perr), (obj64, pobj)):
             _, r = rel_err(ours, ref)
-            check(r <= 1e-10, f"sweep {task} f64: max relative error {r}")
+            check(r <= SWEEP_TOL_F64, f"sweep {task} f64: max relative error {r}")
             worst_rel64 = max(worst_rel64, r)
         timings[task] = sweep_timings(args32, kw)
+        timings[task]["ms_f64"] = time_ms(lambda: sweep_mod.fused_loo_sweep(*args64, **kw))  # noqa: B023
         fast[task].update({k: v for k, v in sweep_timings(args32, kw, "fast").items() if k != "shape"})
     emit({
         "phase": "sweep",
@@ -624,6 +672,7 @@ def phase_sweep(data: dict) -> None:
         "argmin_objective_gap": argmin_gap,
         **timings["regressor"],
         "ms_classifier": timings["classifier"]["ms"],
+        "ms_f64_classifier": timings["classifier"]["ms_f64"],
         "one_pass": fast,
     })
 
@@ -867,6 +916,63 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict, dict]:
     phase_fit_1m_host(X, y, X_test, y_test, dev)
     phase_pretransform(X, y, dev)
     return gram_record, sweep_record, high
+
+
+def phase_fit_1m_f64(dev: torch.device) -> tuple[dict, dict]:
+    """bench's 1M rows handed over as float64 through the default ``NeoLSSVM()``: float64
+    input fits in float64, and its working set streams from 261,633 rows (D = 512), so the
+    device pre-transform, then K1 and K2 once each on the float64 path (counted by path,
+    from 0). LOO R² within 0.03 of the 1M anchor (one draw, as ``fit_1m``), first-call and
+    repeat seconds. Each kernel held to its plain version on the fit's own tensors (the
+    Gram within 1e-11 per entry, the sweep within 1e-10) and timed there, K1 beside
+    ``torch.matmul`` in float64. Then, reported only, the 262,144-row float64 fit
+    (streaming) beside the 261,632-row one (in memory, no kernel), in turns."""
+    X, y = make_dataset(1 << 20, D_IN, seed=0, dtype=np.float64)
+    torch.cuda.empty_cache()
+    with recording_kernel_calls() as calls:
+        reset_launches()
+        first_s, model = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
+        paths = _launches_by_path()
+    check(paths == _one_launch_each(_build.PATH_FP64), f"fit_1m_f64: the fit's launches {paths}")
+    check(model.pre_transform_ == "device", f"fit_1m_f64 took the {model.pre_transform_} pre-transform")
+    check(abs(model.loo_score_ - LOO_R2_1M_DEVICE) <= ONE_DRAW_TOL,
+          f"fit_1m_f64: LOO R² {model.loo_score_} vs {LOO_R2_1M_DEVICE}")
+    repeat_s, _ = timed(lambda: NeoLSSVM(device=dev).fit(X, y))
+    g_args, _, G_k = calls["fused_augmented_gram"]
+    g_abs, g_rel = gram_err(G_k, gram_mod.gram_plain(*g_args))
+    check(math.isfinite(g_rel) and g_rel <= GRAM_TOL_F64, f"1M gram f64: max|ΔG_ij|/√(G_ii·G_jj) = {g_rel}")
+    s_args, s_kw, (err_k, obj_k) = calls["fused_loo_sweep"]
+    perr, pobj = sweep_mod.sweep_plain(*s_args, **s_kw)
+    (e_abs, e_rel), (o_abs, o_rel) = rel_err(err_k, perr), rel_err(obj_k, pobj)
+    check(math.isfinite(e_rel) and max(e_rel, o_rel) <= SWEEP_TOL_F64, f"1M sweep f64: relative errors {e_rel}, {o_rel}")
+    common = {"route": "cuda", "precision": "float64 (either precision)"}
+    gram_record = {"name": "fused_augmented_gram_f64", **common,
+                   "source": "neo_ls_svm_torch/ops/cuda/csrc/gram_fp64.cu",
+                   "replaces": "neo_ls_svm_tpu/ops/pallas/gram.py:61",
+                   "launches": paths["fused_augmented_gram"][_build.PATH_FP64],
+                   "max_abs_err": g_abs, "max_rel_err": g_rel, **gram_timings(list(g_args))}
+    sweep_record = {"name": "fused_loo_sweep_f64", **common,
+                    "source": "neo_ls_svm_torch/ops/cuda/csrc/sweep_fp64.cu",
+                    "replaces": "neo_ls_svm_tpu/ops/pallas/sweep.py:111",
+                    "launches": paths["fused_loo_sweep"][_build.PATH_FP64],
+                    "max_abs_err": max(e_abs, o_abs), "max_rel_err": max(e_rel, o_rel),
+                    **sweep_timings(list(s_args), s_kw)}
+    fitted_1m = {"loo_score": model.loo_score_, "gamma": model.γ_}
+    del calls, model, g_args, s_args, G_k
+    torch.cuda.empty_cache()
+    # Either side of the streaming threshold: 262,144 rows stream, 261,632 fit in memory.
+    X2, y2 = make_dataset(262_144, D_IN, seed=0, dtype=np.float64)
+    sides = {}
+    for rows in (262_144, 261_632, 261_632, 262_144):
+        reset_launches()
+        seconds, fitted = timed(lambda: NeoLSSVM(device=dev).fit(X2[:rows], y2[:rows]))  # noqa: B023
+        side = sides.setdefault(rows, {"fit_s": [], "launches_by_path": _launches_by_path(),
+                                       "loo_score": fitted.loo_score_, "pre_transform_": fitted.pre_transform_})
+        side["fit_s"].append(seconds)
+    emit({"phase": "fit_1m_f64", "n": 1 << 20, "dtype": "float64", "first_fit_s": first_s, "repeat_fit_s": repeat_s,
+          "launches_by_path": paths, **fitted_1m, "kernels": [gram_record, sweep_record],
+          "either_side_of_the_streaming_threshold": sides})
+    return gram_record, sweep_record
 
 
 def gamma_gap(gamma: float, gammas: np.ndarray, loo_errors: np.ndarray) -> float:
@@ -1519,7 +1625,8 @@ def row_order_noise(X: np.ndarray, y: np.ndarray, dev: torch.device) -> dict:
 def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
     """The mesh route on the one card: 4 ranks with gloo on CUDA tensors (the sums pass
     through the host), then NCCL in a world of one rank (and over several cards, where the
-    machine has them). Returns each kernel's launches on each rank in the estimator fit."""
+    machine has them). Returns each kernel's launches on each rank: in the estimator fit,
+    and for K2's one-pass path and the f64 kernels in (a)."""
     import torch.distributed as dist  # noqa: PLC0415
 
     from neo_ls_svm_torch.parallel.mesh import make_mesh  # noqa: PLC0415
@@ -1644,6 +1751,8 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
                           for name in ("fused_augmented_gram", "fused_loo_sweep")}
     estimator_launches["fused_loo_sweep_one_pass"] = [r["f32_fast"]["launches_by_path"]["fused_loo_sweep"][_build.PATH_TF32_1]
                                                       for r in ranks]
+    for name in ("fused_augmented_gram", "fused_loo_sweep"):  # (a) in f64, 131,072 rows
+        estimator_launches[f"{name}_f64"] = [r["f64"]["launches_by_path"][name][_build.PATH_FP64] for r in ranks]
     # (d) NCCL: a world of one rank through the mesh route, against the default 1M fit.
     dist.init_process_group("nccl", init_method=f"file://{MESH_DIR}/rendezvous-nccl-one", world_size=1, rank=0)
     try:
@@ -1703,6 +1812,7 @@ def main() -> int:
     phase_parity_small(dev)
     gram_record, sweep_record, high_1m = phase_fit_1m(dev)
     fast_record = phase_fast(dev, high_1m)
+    gram64_record, sweep64_record = phase_fit_1m_f64(dev)
     phase_fit_262k(dev)
     phase_fit_dual(dev)
     X, y = make_dataset(1 << 20, D_IN, seed=0)
@@ -1714,9 +1824,10 @@ def main() -> int:
     del classifier, regressor
     phase_tensor_io(X, y, dev)
     mesh_launches = phase_mesh(dev)
-    for kernel in (gram_record, sweep_record, fast_record):
+    kernels = [gram_record, sweep_record, fast_record, gram64_record, sweep64_record]
+    for kernel in kernels:
         kernel["mesh_launches_per_rank"] = mesh_launches[kernel["name"]]
-    emit({"kernels": [gram_record, sweep_record, fast_record]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

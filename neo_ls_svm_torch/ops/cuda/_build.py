@@ -4,7 +4,7 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into an object file, all sour
 once in parallel, and the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``. The library lives under ``build/neo_ls_svm_torch/``
 at the root of the checkout, keyed by a hash of the sources and flags, so an edit to a
-source rebuilds it and an unchanged tree reuses it. The float32 kernels' TMA maps need
+source rebuilds it and an unchanged tree reuses it. The kernels' TMA maps need
 ``cuTensorMapEncodeTiled`` from the CUDA driver API, which ``csrc/gemm_sm90.cuh`` fetches
 through the runtime's ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``. Nothing
 here runs at import time: the CPU tests import every module without ``nvcc`` or a card.
@@ -36,10 +36,10 @@ _LIB_NAME = "libneo_ls_svm_kernels.so"
 
 # The kernel paths of the wrappers: float32 runs the 3×TF32 tensor-core kernels
 # (csrc/gram.cu, csrc/sweep.cu), and K2 under precision="fast" their one-pass variant
-# (csrc/sweep.cu); float64 runs the CUDA-core ones (csrc/*_fp64.cu).
+# (csrc/sweep.cu); float64 runs the FP64 tensor-core (DMMA) ones (csrc/*_fp64.cu).
 PATH_TF32 = "3xtf32-wgmma"
 PATH_TF32_1 = "1xtf32-wgmma"
-PATH_FP64 = "fp64-cuda-cores"
+PATH_FP64 = "fp64-dmma"
 
 _library: ctypes.CDLL | None = None
 build_log = ""  # The compiler's output of the last build (ptxas register/smem report).
@@ -50,26 +50,17 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     # (X, M, b, s2, y, G, workspace, n, d, D, chunk, splits, kb_per_split, inv_sqrt_d, stream)
     "neo_gram_f32": [_P] * 7 + [_I64, _I32, _I32, _I32, _I32, _I32, ctypes.c_float, _P],
-    # (X, M, b, s2, y, G, workspace, n, d, D, splits, rows_per_split, inv_sqrt_d, stream)
-    "neo_gram_f64": [_P] * 7 + [_I64, _I32, _I32, _I32, _I64, ctypes.c_double, _P],
-    "neo_gram_f64_workspace": [_I32, _I32],
+    # (X, M, b, s2, y, G, workspace, n, d, D, chunk, splits, kb_per_split, inv_sqrt_d, stream)
+    "neo_gram_f64": [_P] * 7 + [_I64, _I32, _I32, _I32, _I32, _I32, ctypes.c_double, _P],
     # (X, M, b, y, s, s2, Qs, r_all, k, err, obj, workspace, n, d, D, G, chunk,
     #  is_classifier, passes, inv_sqrt_d, inv_c0, stream)
     "neo_sweep_f32": [_P] * 12 + [_I64] + [_I32] * 6 + [ctypes.c_float, ctypes.c_float, _P],
-    # (X, M, b, y, s, s2, Qs, ldq, r_all, ldr, k, err, obj, partials, n, d, D, G, rows,
-    #  blocks, is_classifier, inv_sqrt_d, inv_c0, stream)
-    "neo_sweep_f64": [_P] * 7 + [_I32, _P, _I32] + [_P] * 4 + [_I64] + [_I32] * 6
-    + [ctypes.c_double, ctypes.c_double, _P],
-    "neo_sweep_f64_smem_bytes": [_I32, _I32],
-    "neo_sweep_f64_partials": [_I32, _I32],
+    # (X, M, b, y, s, s2, Qs, r_all, k, err, obj, workspace, n, d, D, G, chunk,
+    #  is_classifier, inv_sqrt_d, inv_c0, stream)
+    "neo_sweep_f64": [_P] * 12 + [_I64] + [_I32] * 5 + [ctypes.c_double, ctypes.c_double, _P],
     "neo_error_string": [_I32],
 }
-_RESTYPES = {
-    "neo_gram_f64_workspace": _I64,
-    "neo_sweep_f64_smem_bytes": _I64,
-    "neo_sweep_f64_partials": _I64,
-    "neo_error_string": ctypes.c_char_p,
-}
+_RESTYPES = {"neo_error_string": ctypes.c_char_p}
 
 
 def _find_nvcc() -> str:

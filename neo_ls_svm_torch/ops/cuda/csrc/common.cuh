@@ -1,6 +1,5 @@
-// Helpers shared by the port's kernels: precise sincos and 4-wide shared-memory loads for
-// the float64 kernels, and the TF32 planes of the float32 kernels' products (hi and lo
-// for 3×TF32, hi alone for one pass).
+// Helpers shared by the port's kernels: precise sincos, and the TF32 planes of the float32
+// kernels' products (hi and lo for 3×TF32, hi alone for one pass).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,17 +11,8 @@ constexpr int kThreads = 256;
 
 // Precise (no fast-math) sincos: the feature phases U reach tens of radians, where the
 // fast intrinsics lose digits.
+__device__ __forceinline__ void sincos_t(float x, float* s, float* c) { sincosf(x, s, c); }
 __device__ __forceinline__ void sincos_t(double x, double* s, double* c) { sincos(x, s, c); }
-
-// Four consecutive values from 16-byte-aligned shared memory.
-__device__ __forceinline__ void load4(const double* p, double v[4]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
 
 // v as a TF32 value rounded to nearest (ties away), low 13 bits zero.
 __device__ __forceinline__ float tf32_rna(float v) {

@@ -1,323 +1,252 @@
-// K2 in float64: fused leave-one-out γ-sweep on the CUDA cores, for Hopper (sm_90a).
-// (The float32 path is sweep.cu, on the tensor cores; this one exists to check parity
-// with the plain version.)
+// K2 (float64): fused leave-one-out γ-sweep, on Hopper's FP64 tensor cores (sm_90a). The
+// float32 path is sweep.cu.
 //
 // Replaces, in float64, the TPU kernel neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep
-// (kernel body _sweep_kernel). For every row i and every γ_g of the grid it evaluates
+// (kernel body _sweep_kernel; float64 has no reduced-precision path, so both of its
+// mxu_precision settings land here). For every row i and every γ_g of the grid it evaluates
 //
 //     W_i  = [cos U_i/√D, 1, sin U_i/√D, 0],   U_i = x_i·M + b,   Gu_i = W_i·Qs
 //     num  = (1/c₀)·Σ_j Gu_ij·k_j·r_jg,        lev = (1/c₀)·s²_i·Σ_j Gu_ij²·r_jg
 //     e_ig = (num − y_i)/(1 − lev), zeroed where a classifier is confidently right,
 //
 // and returns err_g = Σ_i s_i·|e_ig| and the objective: err_g, plus for a classifier
-// Σ_i s_i·[|e_ig| ≥ 1] + Σ_i s_i·max(0, |e_ig| − 1).
+// Σ_i s_i·[|e_ig| ≥ 1] + Σ_i s_i·max(0, |e_ig| − 1). Every float64 fit that streams (from
+// 261,633 rows at D = 512) launches it once.
 //
-// What bounds it on this card: operations, in IEEE FP64 FMAs on the CUDA cores. With
-// 2M = 2D+2 basis columns and G values of γ it does 2·n·(2M)² FLOP for Gu and 4·n·2M·G
-// for num and lev: 6.61 TFLOP at n = 1,048,576, 2M = 1026, G = 1024.
+// What bounds it on this card: operations, on the FP64 tensor cores. With 2M = 2D+2 basis
+// columns and G values of γ it does 2·n·(2M)² FLOP for Gu and 4·n·2M·G for num and lev:
+// 6.6 TFLOP at n = 1,048,576, 2M = 1026, G = 1024, about 99 ms at 67 TFLOP/s. The chunks'
+// W, Gu∘k and Gu∘Gu, written once and read once, are about 16 ms of bytes at 3.35 TB/s.
 //
-// What the design does about it:
-//  * A block owns a group of R rows (8, fewer when 2M is too wide for shared memory)
-//    and keeps the group's Gu∘k and Gu∘Gu in shared memory, 2·R·2M values
-//    (131 KB at the slice's size): the eigenbasis projection is computed once per row and
-//    never reaches device memory. The feature block W is built in the same buffer first.
-//    The buffers are column-major ([column][row]), so the R rows of one column are
-//    adjacent and a thread reads its rows of a column with 16-byte loads.
-//  * Both products of the group (W·Qs, then [Gu∘k | Gu∘Gu]·r_all) are skinny products of
-//    R rows by a wide matrix that stays in the 50 MB L2 (Qs and r_all are 8.4 MB each),
-//    so the L2 traffic per row is (|Qs| + |r_all|)/R: R is as large as shared
-//    memory allows. They are register-tiled: a thread holds all R rows × 4 columns of
-//    each output, so one 16-byte load of the wide matrix (read once per block) and R/4
-//    16-byte shared loads per operand (broadcast across the warp) feed 4·R FMAs per
-//    operand. The wide matrix is read 4 steps ahead of its use, to cover L2 latency.
-//    (Of the layouts timed on an H100 — rows split in 2 or 4 between threads, 2 or 4
-//    columns a thread, 8 or 16 rows a block — this one was the fastest.)
-//  * The residuals and their weighted sums are formed in registers right after the
-//    sweep product; a thread adds its terms into the block's partial sums for its 4
-//    values of γ. Each partial sum belongs to one thread, so there are no atomics.
-//  * Persistent blocks stride over the row groups, so the partials are blocks × G; a
-//    second kernel adds them in block order (the same result on every run, so the
-//    argmin over a flat objective cannot flip).
-//  * Rows past n, columns past 2M and γ past G are masked; Qs and r_all arrive padded to
-//    a leading dimension that is a multiple of 4.
+// What the design does about it (the structure of sweep.cu, in f64; per row chunk):
+//  (a) features.cu writes the chunk's W, row-major, in one f64 plane.
+//  (b) The product loop of gemm_sm90_f64.cuh (TMA + DMMA) computes Gu = W·Qs as 128×128
+//      tiles against Qsᵀ (transposed once per call). Its epilogue writes Gu∘k and Gu∘Gu,
+//      row-major: the A operands of (c). They pass through a workspace in device memory
+//      bounded by the chunk, not through shared memory, so any D fits.
+//  (c) The product loop computes num and lev as two accumulators of 128 rows × 64 values
+//      of γ that share each B tile of r_allᵀ (transposed once per call). Its epilogue forms
+//      e, the classifier clip and the weighted sums over the tile's 128 rows (warp
+//      shuffles, then the 4 row warps in order through shared memory), and adds them into
+//      the partials of its (row tile, γ).
+//  A last kernel adds the row tiles' partials in a fixed order. Qs and r_all are read once
+//  per 128-row tile, and there are no atomics: the argmin over a flat objective cannot
+//  flip between runs. Padding is zero (k to 16, rows to 128, basis columns to 128, γ to
+//  64), so the products need no masks; rows past n are left out of the sums and γ past G
+//  is never read.
 
-#include "common.cuh"
+#include "features.cuh"
+#include "gemm_sm90_f64.cuh"
 
 namespace {
 
-using neo::kThreads;
+using namespace neo::sm90_f64;
 
-constexpr int kCols = 4;                    // output columns per thread
-constexpr int kPass = kThreads * kCols;     // output columns per pass of the block
-constexpr int kAhead = 4;                   // steps the wide matrix is read ahead
+constexpr int kBNGu = 128;
+constexpr int kBNLoo = 64;
+constexpr int kStagesGu = 6;   // 32 KB each
+constexpr int kStagesLoo = 5;  // 40 KB each
+using LooTiling = Tiling<kBNLoo>;
+constexpr int kReduceBytes = LooTiling::kWarpsM * kBNLoo * 2 * sizeof(double);
 
-template <typename T>
-__host__ __device__ inline int64_t sweep_smem_bytes(int D, int rows) {
-  return (2 * static_cast<int64_t>(rows) * (2 * D + 2) + 3 * rows) * sizeof(T);
-}
-
-// R consecutive values from shared memory (16-byte loads when R is a multiple of 4).
-template <typename T, int R>
-__device__ __forceinline__ void load_rows(const T* p, T v[R]) {
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < R; i += 4) neo::load4(p + i, v + i);
+// (b): GG planes at leading dimension ldk: 0 = Gu∘k, 1 = Gu∘Gu.
+__global__ void __launch_bounds__(kThreads, 1)
+    sweep_gu_f64_kernel(const __grid_constant__ CUtensorMap tmW, const __grid_constant__ CUtensorMap tmQ,
+                        double* __restrict__ GG, int64_t plane, int ldk, const double* __restrict__ k,
+                        int M2, int n_tiles, int kblocks) {
+  auto& p = pipe_setup<1, kBNGu, kStagesGu>();
+  const int m0 = (blockIdx.x / n_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_tiles) * kBNGu;
+  if (threadIdx.x >= kConsumers) {
+    producer_registers();
+    if (threadIdx.x == kConsumers) produce<1, kBNGu, kStagesGu>(p, &tmW, &tmQ, m0, n0, 0, kblocks);
   } else {
+    consumer_registers();
+    Acc<1, kBNGu> acc;
+    consume<1, kBNGu, kStagesGu>(p, kblocks, kBM, M2 - n0, acc);
+    using T = Tiling<kBNGu>;
 #pragma unroll
-    for (int i = 0; i < R; ++i) v[i] = p[i];
-  }
-}
-
-__device__ __forceinline__ void load4_global(const double* p, double v[4]) {
-  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-  const double2 b = __ldg(reinterpret_cast<const double2*>(p + 2));
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-
-// acc[a][r][j] += Σ_k A_a[k][r] · B[k][c0 + j] for NA column-major [K][R] shared
-// operands A_a and the wide matrix B (leading dimension ldb).
-template <typename T, int R, int NA>
-__device__ __forceinline__ void skinny_product(const T* const (&A)[NA],
-                                               const T* __restrict__ B, int ldb, int K,
-                                               int c0, T (&acc)[NA][R][kCols]) {
-  const T* b_ptr = B + c0;
-  T b_next[kAhead][kCols];
+    for (int mf = 0; mf < T::kMF; ++mf)
 #pragma unroll
-  for (int s = 0; s < kAhead; ++s)
-    if (s < K) load4_global(b_ptr + static_cast<int64_t>(s) * ldb, b_next[s]);
-  for (int k0 = 0; k0 < K; k0 += kAhead) {
-    T b_cur[kAhead][kCols];
+      for (int nf = 0; nf < T::kNF; ++nf)
 #pragma unroll
-    for (int s = 0; s < kAhead; ++s)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) b_cur[s][j] = b_next[s][j];
-#pragma unroll
-    for (int s = 0; s < kAhead; ++s)
-      if (k0 + kAhead + s < K)
-        load4_global(b_ptr + static_cast<int64_t>(k0 + kAhead + s) * ldb, b_next[s]);
-#pragma unroll
-    for (int s = 0; s < kAhead; ++s) {
-      if (k0 + s < K) {
-#pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          T av[R];
-          load_rows<T, R>(A[a] + (k0 + s) * R, av);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) acc[a][r][j] = fma(av[r], b_cur[s][j], acc[a][r][j]);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-    sweep_partial_kernel(const T* __restrict__ X, const T* __restrict__ Mmap,
-                         const T* __restrict__ bmap, const T* __restrict__ y,
-                         const T* __restrict__ s, const T* __restrict__ s2,
-                         const T* __restrict__ Qs, int ldq, const T* __restrict__ r_all,
-                         int ldr, const T* __restrict__ k, T* __restrict__ part_err,
-                         T* __restrict__ part_obj, int64_t n, int d, int D, int G,
-                         int is_classifier, T inv_sqrt_d, T inv_c0) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int M2 = 2 * D + 2;
-  T* bufA = reinterpret_cast<T*>(smem_raw);  // [M2][R]: Gu, then Gu∘k
-  T* bufB = bufA + R * M2;                   // [M2][R]: W, then Gu∘Gu
-  T* ys = bufB + R * M2;
-  T* ss = ys + R;
-  T* s2s = ss + R;
-
-  const int tid = threadIdx.x;
-  T* my_err = part_err + static_cast<int64_t>(blockIdx.x) * G;
-  T* my_obj = part_obj + static_cast<int64_t>(blockIdx.x) * G;
-  for (int g0 = kCols * tid; g0 < G; g0 += kPass)  // the same thread owns these γ below
-    for (int j = 0; j < kCols && g0 + j < G; ++j) {
-      my_err[g0 + j] = T(0);
-      my_obj[g0 + j] = T(0);
-    }
-
-  const int64_t groups = (n + R - 1) / R;
-  for (int64_t grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-    const int64_t r0 = grp * R;
-    const int rows = static_cast<int>(min(static_cast<int64_t>(R), n - r0));
-    __syncthreads();  // the previous group's readers of the buffers are done
-    if (tid < R) {
-      ys[tid] = tid < rows ? y[r0 + tid] : T(0);
-      ss[tid] = tid < rows ? s[r0 + tid] : T(0);
-      s2s[tid] = tid < rows ? s2[r0 + tid] : T(0);
-    }
-    // Feature block W = [cos U/√D, 1, sin U/√D, 0] into bufB, zero in rows past n.
-    for (int e = tid; e < R * D; e += kThreads) {
-      const int r = e % R, q = e / R;
-      T c = T(0), sn = T(0);
-      if (r < rows) {
-        const T* xr = X + (r0 + r) * d;
-        T u = T(0);
-        for (int kk = 0; kk < d; ++kk) u = fma(xr[kk], Mmap[static_cast<int64_t>(kk) * D + q], u);
-        neo::sincos_t(u + bmap[q], &sn, &c);
-        c *= inv_sqrt_d;
-        sn *= inv_sqrt_d;
-      }
-      bufB[q * R + r] = c;
-      bufB[(D + 1 + q) * R + r] = sn;
-    }
-    if (tid < R) {
-      bufB[D * R + tid] = tid < rows ? T(1) : T(0);
-      bufB[(2 * D + 1) * R + tid] = T(0);
-    }
-    __syncthreads();
-    // Gu = W·Qs into bufA.
-    {
-      const T* A[1] = {bufB};
-      for (int c0 = kCols * tid; c0 < M2; c0 += kPass) {
-        T acc[1][R][kCols];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) acc[0][r][j] = T(0);
-        skinny_product<T, R, 1>(A, Qs, ldq, M2, c0, acc);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          if (c0 + j < M2)
-#pragma unroll
-            for (int r = 0; r < R; ++r) bufA[(c0 + j) * R + r] = acc[0][r][j];
-      }
-    }
-    __syncthreads();
-    // Gu∘k into bufA and Gu∘Gu into bufB (W is no longer needed).
-    for (int e = tid; e < R * M2; e += kThreads) {
-      const T gu = bufA[e];
-      bufA[e] = gu * k[e / R];
-      bufB[e] = gu * gu;
-    }
-    __syncthreads();
-    // The sweep: num and lev of the group's rows for 4 values of γ, then the sums.
-    {
-      const T* A[2] = {bufA, bufB};
-      for (int g0 = kCols * tid; g0 < G; g0 += kPass) {
-        T acc[2][R][kCols];
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) acc[a][r][j] = T(0);
-        skinny_product<T, R, 2>(A, r_all, ldr, M2, g0, acc);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          if (g0 + j < G) {
-            T err = T(0), extra = T(0);
-#pragma unroll
-            for (int row = 0; row < R; ++row) {
-              if (row < rows) {
-                const T num = inv_c0 * acc[0][row][j];
-                const T lev = inv_c0 * s2s[row] * acc[1][row][j];
-                T e = (num - ys[row]) / (T(1) - lev);
-                if (is_classifier && ((ys[row] > T(0) && e > T(0)) || (ys[row] < T(0) && e < T(0))))
-                  e = T(0);
-                const T ae = fabs(e);
-                err = fma(ss[row], ae, err);
-                if (is_classifier) {
-                  extra += ss[row] * (ae >= T(1) ? T(1) : T(0));
-                  extra += ss[row] * fmax(T(0), ae - T(1));
-                }
-              }
-            }
-            my_err[g0 + j] += err;
-            my_obj[g0 + j] += err + extra;
+        for (int i = 0; i < 4; ++i) {
+          const int c = n0 + acc_col<kBNGu>(nf, i);
+          if (c < ldk) {
+            const double gu = acc[0][mf][nf][i];
+            double* o = GG + static_cast<int64_t>(m0 + acc_row<kBNGu>(mf, i)) * ldk + c;
+            o[0] = gu * (c < M2 ? k[c] : 0.0);
+            o[plane] = gu * gu;
           }
         }
-      }
-    }
   }
 }
 
-// Adds the partials in block order: the result is the same on every run.
-template <typename T>
-__global__ void sweep_reduce_kernel(const T* __restrict__ part_err,
-                                    const T* __restrict__ part_obj, T* __restrict__ err,
-                                    T* __restrict__ obj, int G, int blocks) {
+// (c): the residuals of 128 rows × 64 values of γ and their weighted sums over the rows:
+// rows row0 + (0..127) of the chunk's row tile mt, γ columns n0 + (0..63).
+__global__ void __launch_bounds__(kThreads, 1)
+    sweep_loo_f64_kernel(const __grid_constant__ CUtensorMap tmGG, const __grid_constant__ CUtensorMap tmR,
+                         double* __restrict__ part_err, double* __restrict__ part_obj, int ldp,
+                         const double* __restrict__ y, const double* __restrict__ s,
+                         const double* __restrict__ s2, int64_t r0, int64_t n, int g_tiles, int G,
+                         int kblocks, int is_classifier, double inv_c0, int accumulate) {
+  auto& p = pipe_setup<2, kBNLoo, kStagesLoo>();
+  double* red = reinterpret_cast<double*>(&p + 1);  // [row warp][column][err, obj]
+  const int mt = blockIdx.x / g_tiles;
+  const int m0 = mt * kBM;
+  const int n0 = (blockIdx.x % g_tiles) * kBNLoo;
+  if (threadIdx.x >= kConsumers) {
+    producer_registers();
+    if (threadIdx.x == kConsumers) produce<2, kBNLoo, kStagesLoo>(p, &tmGG, &tmR, m0, n0, 0, kblocks);
+    return;
+  }
+  consumer_registers();
+  Acc<2, kBNLoo> acc;
+  consume<2, kBNLoo, kStagesLoo>(p, kblocks, kBM, G - n0, acc);
+  using T = LooTiling;
+  // This thread's four rows (mf, h: acc_row(mf, 2h)), masked past n.
+  bool valid[T::kMF][2];
+  double yv[T::kMF][2], sv[T::kMF][2], s2v[T::kMF][2];
+#pragma unroll
+  for (int mf = 0; mf < T::kMF; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + m0 + acc_row<kBNLoo>(mf, 2 * h);
+      valid[mf][h] = row < n;
+      yv[mf][h] = valid[mf][h] ? y[row] : 0.0;
+      sv[mf][h] = valid[mf][h] ? s[row] : 0.0;
+      s2v[mf][h] = valid[mf][h] ? s2[row] : 0.0;
+    }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / T::kWarpsN;
+#pragma unroll
+  for (int nf = 0; nf < T::kNF; ++nf) {
+    double err[2] = {0.0, 0.0}, obj[2] = {0.0, 0.0};  // columns acc_col(nf, c), c = 0, 1
+#pragma unroll
+    for (int mf = 0; mf < T::kMF; ++mf)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, c = i & 1;
+        if (valid[mf][h]) {
+          const double num = inv_c0 * acc[0][mf][nf][i];
+          const double lev = inv_c0 * s2v[mf][h] * acc[1][mf][nf][i];
+          double e = (num - yv[mf][h]) / (1.0 - lev);
+          if (is_classifier && ((yv[mf][h] > 0.0 && e > 0.0) || (yv[mf][h] < 0.0 && e < 0.0))) e = 0.0;
+          const double ae = fabs(e);
+          const double t = sv[mf][h] * ae;
+          err[c] += t;
+          obj[c] += is_classifier ? t + sv[mf][h] * (ae >= 1.0 ? 1.0 : 0.0) + sv[mf][h] * fmax(0.0, ae - 1.0) : t;
+        }
+      }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {  // the 8 lanes of a column
+        err[c] += __shfl_xor_sync(0xffffffffu, err[c], off);
+        obj[c] += __shfl_xor_sync(0xffffffffu, obj[c], off);
+      }
+      if (lane < 4) {
+        double* r = red + (wm * kBNLoo + acc_col<kBNLoo>(nf, c)) * 2;
+        r[0] = err[c];
+        r[1] = obj[c];
+      }
+    }
+  }
+  consumers_sync();
+  if (threadIdx.x < kBNLoo) {
+    double e = 0.0, o = 0.0;
+    for (int w = 0; w < T::kWarpsM; ++w) {
+      e += red[(w * kBNLoo + threadIdx.x) * 2];
+      o += red[(w * kBNLoo + threadIdx.x) * 2 + 1];
+    }
+    const int64_t at = static_cast<int64_t>(mt) * ldp + n0 + threadIdx.x;
+    if (accumulate) {
+      e += part_err[at];
+      o += part_obj[at];
+    }
+    part_err[at] = e;
+    part_obj[at] = o;
+  }
+}
+
+// err[g], obj[g] = Σ over the row tiles, in order.
+__global__ void sweep_sum_f64_kernel(const double* __restrict__ part_err,
+                                     const double* __restrict__ part_obj, int ldp, int row_tiles,
+                                     int G, double* __restrict__ err, double* __restrict__ obj) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
-  T e = T(0), o = T(0);
-  for (int b = 0; b < blocks; ++b) {
-    e += part_err[static_cast<int64_t>(b) * G + g];
-    o += part_obj[static_cast<int64_t>(b) * G + g];
+  double e = 0.0, o = 0.0;
+  for (int t = 0; t < row_tiles; ++t) {
+    e += part_err[static_cast<int64_t>(t) * ldp + g];
+    o += part_obj[static_cast<int64_t>(t) * ldp + g];
   }
   err[g] = e;
   obj[g] = o;
-}
-
-template <typename T, int R>
-int launch_sweep_rows(const T* X, const T* Mmap, const T* bmap, const T* y, const T* s,
-                      const T* s2, const T* Qs, int ldq, const T* r_all, int ldr, const T* k,
-                      T* err, T* obj, T* partials, int64_t n, int d, int D, int G, int blocks,
-                      int is_classifier, T inv_sqrt_d, T inv_c0, cudaStream_t stream) {
-  const int64_t smem = sweep_smem_bytes<T>(D, R);
-  cudaError_t status = cudaFuncSetAttribute(
-      sweep_partial_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (status != cudaSuccess) return status;
-  T* part_err = partials;
-  T* part_obj = partials + static_cast<int64_t>(blocks) * G;
-  sweep_partial_kernel<T, R><<<blocks, kThreads, smem, stream>>>(
-      X, Mmap, bmap, y, s, s2, Qs, ldq, r_all, ldr, k, part_err, part_obj, n, d, D, G,
-      is_classifier, inv_sqrt_d, inv_c0);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return status;
-  sweep_reduce_kernel<T><<<(G + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      part_err, part_obj, err, obj, G, blocks);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch_sweep(const T* X, const T* Mmap, const T* bmap, const T* y, const T* s,
-                 const T* s2, const T* Qs, int ldq, const T* r_all, int ldr, const T* k, T* err,
-                 T* obj, T* partials, int64_t n, int d, int D, int G, int rows, int blocks,
-                 int is_classifier, T inv_sqrt_d, T inv_c0, cudaStream_t stream) {
-#define NEO_SWEEP_CASE(R)                                                                 \
-  case R:                                                                                 \
-    return launch_sweep_rows<T, R>(X, Mmap, bmap, y, s, s2, Qs, ldq, r_all, ldr, k, err, \
-                                   obj, partials, n, d, D, G, blocks, is_classifier,    \
-                                   inv_sqrt_d, inv_c0, stream);
-  switch (rows) {
-    NEO_SWEEP_CASE(8)
-    NEO_SWEEP_CASE(4)
-    NEO_SWEEP_CASE(2)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef NEO_SWEEP_CASE
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block for `rows` rows per group.
-int64_t neo_sweep_f64_smem_bytes(int D, int rows) { return sweep_smem_bytes<double>(D, rows); }
-
-// Partial sums the kernel needs: 2 (err, obj) × blocks × G.
-int64_t neo_sweep_f64_partials(int G, int blocks) { return 2 * static_cast<int64_t>(blocks) * G; }
-
+// The workspace (doubles), for Kp = 2M rounded up to 16, Np = 2M rounded up to 128 and
+// Gp = G rounded up to 64: W (chunk·Kp), Gu∘k and Gu∘Gu (2·chunk·Kp), Qsᵀ (Np·Kp), r_allᵀ
+// (Gp·Kp), then the err and obj partials (2·(chunk/128)·Gp); the wrapper's plan sizes it.
+// chunk is a multiple of 128 and at most the first chunk's rows rounded up to 128.
 int neo_sweep_f64(const void* X, const void* Mmap, const void* bmap, const void* y,
-                  const void* s, const void* s2, const void* Qs, int ldq, const void* r_all,
-                  int ldr, const void* k, void* err, void* obj, void* partials, int64_t n,
-                  int d, int D, int G, int rows, int blocks, int is_classifier,
-                  double inv_sqrt_d, double inv_c0, void* stream) {
-  using T = double;
-  return launch_sweep<T>(static_cast<const T*>(X), static_cast<const T*>(Mmap),
-                         static_cast<const T*>(bmap), static_cast<const T*>(y),
-                         static_cast<const T*>(s), static_cast<const T*>(s2),
-                         static_cast<const T*>(Qs), ldq, static_cast<const T*>(r_all), ldr,
-                         static_cast<const T*>(k), static_cast<T*>(err), static_cast<T*>(obj),
-                         static_cast<T*>(partials), n, d, D, G, rows, blocks, is_classifier,
-                         inv_sqrt_d, inv_c0, static_cast<cudaStream_t>(stream));
+                  const void* s, const void* s2, const void* Qs, const void* r_all,
+                  const void* k, void* err, void* obj, void* workspace, int64_t n, int d, int D,
+                  int G, int chunk, int is_classifier, double inv_sqrt_d, double inv_c0,
+                  void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int M2 = 2 * D + 2;
+  const int Kp = (M2 + kBK - 1) / kBK * kBK;
+  const int Np = (M2 + kBNGu - 1) / kBNGu * kBNGu;
+  const int Gp = (G + kBNLoo - 1) / kBNLoo * kBNLoo;
+  const int64_t plane = static_cast<int64_t>(chunk) * Kp;
+  double* W = static_cast<double*>(workspace);
+  double* GG = W + plane;
+  double* Qt = GG + 2 * plane;
+  double* Rt = Qt + static_cast<int64_t>(Np) * Kp;
+  double* part_err = Rt + static_cast<int64_t>(Gp) * Kp;
+  double* part_obj = part_err + static_cast<int64_t>(chunk / kBM) * Gp;
+
+  cudaError_t status = neo::launch_transpose(static_cast<const double*>(Qs), M2, M2, Qt, Kp, Np, st);
+  if (status != cudaSuccess) return status;
+  status = neo::launch_transpose(static_cast<const double*>(r_all), M2, G, Rt, Kp, Gp, st);
+  if (status != cudaSuccess) return status;
+  CUtensorMap tmW, tmQ, tmGG, tmR;
+  if ((status = make_tile_map(&tmW, W, Kp, chunk, 1, kBM)) != cudaSuccess) return status;
+  if ((status = make_tile_map(&tmQ, Qt, Kp, Np, 1, kBNGu)) != cudaSuccess) return status;
+  if ((status = make_tile_map(&tmGG, GG, Kp, chunk, 2, kBM)) != cudaSuccess) return status;
+  if ((status = make_tile_map(&tmR, Rt, Kp, Gp, 1, kBNLoo)) != cudaSuccess) return status;
+  const int smem_gu = pipe_smem_bytes<1, kBNGu, kStagesGu>(0);
+  const int smem_loo = pipe_smem_bytes<2, kBNLoo, kStagesLoo>(kReduceBytes);
+  status = cudaFuncSetAttribute(sweep_gu_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_gu);
+  if (status != cudaSuccess) return status;
+  status = cudaFuncSetAttribute(sweep_loo_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_loo);
+  if (status != cudaSuccess) return status;
+
+  const auto* y_ = static_cast<const double*>(y);
+  const auto* s_ = static_cast<const double*>(s);
+  const auto* s2_ = static_cast<const double*>(s2);
+  for (int64_t r0 = 0; r0 < n; r0 += chunk) {
+    const int rows = static_cast<int>(n - r0 < chunk ? n - r0 : chunk);
+    const int row_tiles = (rows + kBM - 1) / kBM;
+    status = neo::launch_features(neo::FeatureLayout::kSweepW, static_cast<const double*>(X),
+                                  static_cast<const double*>(Mmap), static_cast<const double*>(bmap),
+                                  s2_, y_, W, Kp, r0, n, row_tiles * kBM, d, D, Kp, inv_sqrt_d, st);
+    if (status != cudaSuccess) return status;
+    sweep_gu_f64_kernel<<<row_tiles * (Np / kBNGu), kThreads, smem_gu, st>>>(
+        tmW, tmQ, GG, plane, Kp, static_cast<const double*>(k), M2, Np / kBNGu, Kp / kBK);
+    if ((status = cudaGetLastError()) != cudaSuccess) return status;
+    sweep_loo_f64_kernel<<<row_tiles * (Gp / kBNLoo), kThreads, smem_loo, st>>>(
+        tmGG, tmR, part_err, part_obj, Gp, y_, s_, s2_, r0, n, Gp / kBNLoo, G, Kp / kBK,
+        is_classifier, inv_c0, r0 > 0);
+    if ((status = cudaGetLastError()) != cudaSuccess) return status;
+  }
+  sweep_sum_f64_kernel<<<(G + 255) / 256, 256, 0, st>>>(part_err, part_obj, Gp, chunk / kBM, G,
+                                                        static_cast<double*>(err), static_cast<double*>(obj));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -4,10 +4,11 @@ re-indexing into the solver's W basis.
 ``fused_augmented_gram`` computes G = Yᵀ·diag(s²)·Y for Y = [cos U/√D | sin U/√D | 1 | y],
 U = X·M + b: every second-order statistic of the streaming solver's first pass. On a CUDA
 tensor it launches the hand-written kernels that port
-``neo_ls_svm_tpu/ops/pallas/gram.py::fused_augmented_gram``: in float32 ``csrc/gram.cu``
-(features built once per row chunk, then the TMA + wgmma 3×TF32 product loop of
-``csrc/gemm_sm90.cuh``), in float64 ``csrc/gram_fp64.cu`` (CUDA cores). On a CPU tensor it
-runs :func:`gram_plain`. There is no fallback from one to the other.
+``neo_ls_svm_tpu/ops/pallas/gram.py::fused_augmented_gram``: features built once per row
+chunk, then in float32 the TMA + wgmma 3×TF32 product loop of ``csrc/gemm_sm90.cuh``
+(``csrc/gram.cu``), in float64 the TMA + DMMA product loop of ``csrc/gemm_sm90_f64.cuh`` on
+the FP64 tensor cores (``csrc/gram_fp64.cu``). On a CPU tensor it runs :func:`gram_plain`.
+There is no fallback from one to the other.
 """
 
 import math
@@ -20,34 +21,38 @@ from neo_ls_svm_torch.utils.precision import matmul_precision
 launches = 0  # Kernel launches of fused_augmented_gram (its plain version is not counted).
 path_launches = {PATH_TF32: 0, PATH_FP64: 0}  # the same launches, by kernel path
 
-_TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh (and kTile in csrc/gram_fp64.cu)
-_KBLOCK = 32  # kBK in csrc/gemm_sm90.cuh: rows per k-block of the product
-# float32: rows per chunk, the streaming route's own row_chunk. Its sYᵀ, hi and lo, is
-# 151 MB at D = 512; the blocks in flight read about 3 of its 8 splits (57 MB), near the
-# 50 MB L2. On an H100, halving the chunk (and with it each block's run of rows) was
-# slower even though its features then fit in L2.
+_TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh and csrc/gemm_sm90_f64.cuh
+# Rows per k-block of the product: kBK in csrc/gemm_sm90.cuh (32 f32) and
+# csrc/gemm_sm90_f64.cuh (16 f64), one 128-byte swizzle row either way.
+_KBLOCK = {torch.float32: 32, torch.float64: 16}
+# Rows per chunk, the streaming route's own row_chunk. Its sYᵀ is 151 MB at D = 512 in
+# either dtype (f32 hi and lo, or one f64 plane); the blocks in flight read about 3 of its
+# 8 splits (57 MB), near the 50 MB L2. On an H100, halving the chunk (and with it each
+# block's run of rows) was slower in f32 even though its features then fit in L2.
 _CHUNK_ROWS = 16384
-# float32: row splits per chunk. 45 upper tiles (D = 512) × 8 = 360 blocks, 2.7 waves of
-# the H100's 132 SMs at one block per SM; 4 and 12 splits were slower on an H100.
+# Row splits per chunk. 45 upper tiles (D = 512) × 8 = 360 blocks, 2.7 waves of the H100's
+# 132 SMs at one block per SM; 4 and 12 splits were slower in f32 on an H100.
 _SPLITS = 8
-_F64_ROWS = 16  # kRows in csrc/gram_fp64.cu: rows per staged chunk.
-_F64_BLOCKS_PER_SM_TARGET = 6  # ~6 waves of the one block per SM that fits
 
 
-def gram_plan(n: int, D: int) -> dict[str, int]:
-    """The float32 kernel's row chunk, row split and workspace for n rows and D features.
+def gram_plan(n: int, D: int, dtype: torch.dtype = torch.float32) -> dict[str, int]:
+    """The kernel's row chunk, row split and workspace for n rows and D features.
 
-    The workspace is the chunk's sYᵀ (hi and lo, F = 2D+2 rounded up to a tile) and one
-    partial of the upper-triangle tiles per split: it is bounded by the chunk, not by n.
+    The workspace is the chunk's sYᵀ (F = 2D+2 rounded up to a tile; f32 in its TF32 hi and
+    lo planes, f64 in one plane) and one partial of the upper-triangle tiles per split: it
+    is bounded by the chunk, not by n. A chunk is whole 32-row feature tiles.
     """
     F = -(-(2 * D + 2) // _TILE) * _TILE
     nt = F // _TILE
-    chunk = min(_CHUNK_ROWS, -(-max(n, 1) // _KBLOCK) * _KBLOCK)
-    kblocks = chunk // _KBLOCK
+    kblock = _KBLOCK[dtype]
+    chunk = min(_CHUNK_ROWS, -(-max(n, 1) // 32) * 32)
+    kblocks = chunk // kblock
     kb_per_split = -(-kblocks // min(_SPLITS, kblocks))
     splits = -(-kblocks // kb_per_split)
-    floats = 2 * F * chunk + splits * nt * (nt + 1) // 2 * _TILE * _TILE
-    return {"chunk": chunk, "splits": splits, "kb_per_split": kb_per_split, "workspace_bytes": 4 * floats}
+    planes = 2 if dtype == torch.float32 else 1
+    elements = planes * F * chunk + splits * nt * (nt + 1) // 2 * _TILE * _TILE
+    itemsize = 4 if dtype == torch.float32 else 8
+    return {"chunk": chunk, "splits": splits, "kb_per_split": kb_per_split, "workspace_bytes": itemsize * elements}
 
 
 @matmul_precision("ieee")
@@ -135,21 +140,10 @@ def fused_augmented_gram(
     K = 2 * D + 2
     G = torch.empty((K, K), dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    if X.dtype == torch.float32:
-        plan = gram_plan(n, D)
-        workspace = torch.empty(plan["workspace_bytes"] // 4, dtype=X.dtype, device=X.device)
-        args = (n, d, D, plan["chunk"], plan["splits"], plan["kb_per_split"], 1.0 / math.sqrt(D), stream)
-        entry = lib.neo_gram_f32
-    else:
-        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-        nt = -(-2 * D // _TILE)
-        ntiles = nt * (nt + 1) // 2
-        splits = max(1, min(-(-n // _F64_ROWS), -(-_F64_BLOCKS_PER_SM_TARGET * sms // ntiles)))
-        rows_per_split = -(-(-(-n // splits)) // _F64_ROWS) * _F64_ROWS
-        splits = -(-n // rows_per_split)
-        workspace = torch.empty(lib.neo_gram_f64_workspace(D, splits), dtype=X.dtype, device=X.device)
-        args = (n, d, D, splits, rows_per_split, 1.0 / math.sqrt(D), stream)
-        entry = lib.neo_gram_f64
+    plan = gram_plan(n, D, X.dtype)
+    workspace = torch.empty(plan["workspace_bytes"] // X.element_size(), dtype=X.dtype, device=X.device)
+    args = (n, d, D, plan["chunk"], plan["splits"], plan["kb_per_split"], 1.0 / math.sqrt(D), stream)
+    entry = lib.neo_gram_f32 if X.dtype == torch.float32 else lib.neo_gram_f64
     with torch.cuda.device(X.device):
         status = entry(
             X.data_ptr(),

@@ -2,14 +2,16 @@
 
 ``fused_loo_sweep`` evaluates, for every γ of the grid, the weighted LOO error and the
 γ-selection objective of the streaming solver's second pass. On a CUDA tensor it launches
-the hand-written kernel of ``csrc/sweep.cu`` (the port of
-``neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep``); on a CPU tensor it runs
+the hand-written kernels that port ``neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep``:
+in float32 ``csrc/sweep.cu`` on the TMA + wgmma TF32 product loop of ``csrc/gemm_sm90.cuh``,
+in float64 ``csrc/sweep_fp64.cu`` on the TMA + DMMA product loop of
+``csrc/gemm_sm90_f64.cuh`` (the FP64 tensor cores). On a CPU tensor it runs
 :func:`sweep_plain`. There is no fallback from one to the other.
 
 ``precision`` mirrors the Pallas kernel's ``mxu_precision``: ``"high"`` (HIGHEST) runs
 float32 in 3×TF32, ``"fast"`` (DEFAULT) in one TF32 pass, each counted under its own path.
-Float64 has no TF32 and runs the CUDA-core kernel under either, as JAX's DEFAULT is exact
-in float64 off the TPU.
+Float64 has no TF32 and runs its one kernel under either, as JAX's DEFAULT is exact in
+float64 off the TPU.
 """
 
 import math
@@ -32,39 +34,39 @@ path_launches = {PATH_TF32: 0, PATH_TF32_1: 0, PATH_FP64: 0}  # the same launche
 # TF32 passes of each float32 product, by precision.
 _PASSES = {"high": 3, "fast": 1}
 
-_TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh
+_TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh; kBM and the Gu tile's kBNGu in csrc/sweep_fp64.cu
 _KBLOCK = 32  # kBK in csrc/gemm_sm90.cuh
-# float32: rows per chunk. The Gu and sweep products then launch 1152 and 1024 blocks a
-# chunk at 2M = 1026 and G = 1024: 8.7 and 7.8 waves of the H100's 132 SMs.
+_KBLOCK_F64 = 16  # kBK in csrc/gemm_sm90_f64.cuh
+_GAMMA_TILE_F64 = 64  # kBNLoo in csrc/sweep_fp64.cu: values of γ per sweep tile
+# Rows per chunk, in either dtype. The Gu and sweep products then launch 1152 and 1024
+# blocks a chunk in float32 (2M = 1026, G = 1024: 8.7 and 7.8 waves of the H100's 132 SMs),
+# 1152 and 2048 in float64.
 _CHUNK_ROWS = 16384
-_SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory one H100 block may use
-_SMEM_PER_SM = 233_472  # shared memory of one SM (1 KB of it reserved per block)
-_THREADS = 256  # kThreads in csrc/common.cuh
-_F64_ROW_CHOICES = (8, 4, 2)  # rows per group of csrc/sweep_fp64.cu, widest first
 
 
-def sweep_plan(n: int, D: int, G: int, precision: Literal["high", "fast"] = "high") -> dict[str, int]:
-    """The float32 kernels' row chunk and workspace for n rows, D features and G values of γ.
+def sweep_plan(
+    n: int, D: int, G: int, precision: Literal["high", "fast"] = "high", dtype: torch.dtype = torch.float32
+) -> dict[str, int]:
+    """The kernels' row chunk and workspace for n rows, D features and G values of γ.
 
-    The workspace holds the chunk's W and Gu∘k, Gu∘Gu, Qsᵀ and r_allᵀ, each in its TF32
-    planes (hi and lo under "high", hi alone under "fast"), and the chunk's row-tile
-    partials: it is bounded by the chunk, not by n.
+    The workspace holds the chunk's W and Gu∘k, Gu∘Gu, Qsᵀ and r_allᵀ, in float32 in their
+    TF32 planes (hi and lo under "high", hi alone under "fast"), in float64 in one plane
+    under either, and the chunk's row-tile partials: it is bounded by the chunk, not by n,
+    and any D fits.
     """
-    planes = 2 if _PASSES[precision] == 3 else 1
     M2 = 2 * D + 2
-    Kp = -(-M2 // _KBLOCK) * _KBLOCK
     Np = -(-M2 // _TILE) * _TILE
-    Gp = -(-G // _TILE) * _TILE
     chunk = min(_CHUNK_ROWS, -(-max(n, 1) // _TILE) * _TILE)
+    if dtype == torch.float64:
+        Kp = -(-M2 // _KBLOCK_F64) * _KBLOCK_F64
+        Gp = -(-G // _GAMMA_TILE_F64) * _GAMMA_TILE_F64
+        elements = 3 * chunk * Kp + Np * Kp + Gp * Kp + 2 * (chunk // _TILE) * Gp
+        return {"chunk": chunk, "workspace_bytes": 8 * elements}
+    planes = 2 if _PASSES[precision] == 3 else 1
+    Kp = -(-M2 // _KBLOCK) * _KBLOCK
+    Gp = -(-G // _TILE) * _TILE
     floats = planes * (3 * chunk * Kp + Np * Kp + Gp * Kp) + 2 * (chunk // _TILE) * Gp
     return {"chunk": chunk, "workspace_bytes": 4 * floats}
-
-
-def _pad_columns(a: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``a`` with its columns zero-padded to a multiple of 4 (the float64 kernel's
-    16-byte loads), and the padded leading dimension."""
-    pad = (-a.shape[1]) % 4
-    return (torch.nn.functional.pad(a, (0, pad)) if pad else a), a.shape[1] + pad
 
 
 @matmul_precision("ieee")
@@ -174,29 +176,15 @@ def fused_loo_sweep(
     objective = torch.empty(G, dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     inv_sqrt_d = 1.0 / math.sqrt(D)
+    plan = sweep_plan(n, D, G, precision, X.dtype)
+    workspace = torch.empty(plan["workspace_bytes"] // X.element_size(), dtype=X.dtype, device=X.device)
+    operands = (Qs.data_ptr(), r_all.data_ptr(), k.data_ptr(), loo_err.data_ptr(), objective.data_ptr())
+    args = (*operands, workspace.data_ptr(), n, d, D, G, plan["chunk"], int(is_classifier))
     if X.dtype == torch.float32:
-        plan = sweep_plan(n, D, G, precision)
-        workspace = torch.empty(plan["workspace_bytes"] // 4, dtype=X.dtype, device=X.device)
-        operands = (Qs.data_ptr(), r_all.data_ptr(), k.data_ptr(), loo_err.data_ptr(), objective.data_ptr())
-        args = (*operands, workspace.data_ptr(), n, d, D, G, plan["chunk"], int(is_classifier), _PASSES[precision])
+        args += (_PASSES[precision],)
         entry = lib.neo_sweep_f32
         path = PATH_TF32 if precision == "high" else PATH_TF32_1
     else:
-        fits = [r for r in _F64_ROW_CHOICES if lib.neo_sweep_f64_smem_bytes(D, r) <= _SMEM_PER_BLOCK]
-        rows = fits[0] if fits else None
-        if rows is None:
-            msg = f"D={D} is too wide for float64: one row of the sweep's Gu block exceeds shared memory"
-            raise ValueError(msg)
-        smem = lib.neo_sweep_f64_smem_bytes(D, rows)
-        per_sm = max(1, min(2048 // _THREADS, _SMEM_PER_SM // (smem + 1024)))
-        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-        blocks = min(-(-n // rows), sms * per_sm)
-        Qs_p, ldq = _pad_columns(Qs)
-        r_all_p, ldr = _pad_columns(r_all)
-        partials = torch.empty(lib.neo_sweep_f64_partials(G, blocks), dtype=X.dtype, device=X.device)
-        operands = (Qs_p.data_ptr(), ldq, r_all_p.data_ptr(), ldr, k.data_ptr())
-        operands += (loo_err.data_ptr(), objective.data_ptr(), partials.data_ptr())
-        args = (*operands, n, d, D, G, rows, blocks, int(is_classifier))
         entry = lib.neo_sweep_f64
         path = PATH_FP64
     with torch.cuda.device(X.device):

@@ -11,14 +11,20 @@ hi/lo split and k-blocks, is held against the plain versions in float64 under
 one pass (K2's ``precision="fast"`` path) is held to ``chip_smoke.py``'s one-pass limits,
 and must stay at least 10× further from float64 than three passes. A CPU tensor runs the
 plain version in IEEE under either precision. The kernels' chunk plans must keep their
-workspace independent of n.
+workspace independent of n, in float32 and in float64, and the float64 sweep's plan takes
+any width. A float64 tensor on another device than the CPU reaches the float64 (DMMA)
+entry points, counted under their path, with a stand-in library.
 """
+
+import contextlib
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from neo_ls_svm_torch.ops.cuda import _build
 from neo_ls_svm_torch.ops.cuda import gram as tgram
 from neo_ls_svm_torch.ops.cuda import sweep as tsweep
 from neo_ls_svm_tpu.models.primal import embed_from_gram_blocks, gamma_grid
@@ -300,3 +306,73 @@ def test_f32_workspace_is_bounded_by_the_row_chunk(kernel: str) -> None:
     small = plan(3001)
     assert 3001 <= small["chunk"] < 3001 + 128
     assert small["workspace_bytes"] < plan(2**20)["workspace_bytes"]
+
+
+@pytest.mark.parametrize("kernel", ["gram", "sweep"])
+def test_f64_workspace_is_bounded_by_the_row_chunk(kernel: str) -> None:
+    def plan(n: int) -> dict[str, int]:
+        if kernel == "gram":
+            return tgram.gram_plan(n, 512, torch.float64)
+        return tsweep.sweep_plan(n, 512, 1024, dtype=torch.float64)
+
+    assert plan(2**14) == plan(2**20)
+    assert plan(2**20)["chunk"] <= 16384
+    small = plan(3001)
+    assert 3001 <= small["chunk"] < 3001 + 128
+    assert small["workspace_bytes"] < plan(2**20)["workspace_bytes"]
+
+
+@pytest.mark.parametrize("D", [3631, 4096])
+def test_f64_sweep_plan_takes_any_width(D: int) -> None:
+    """The float64 sweep passes Gu∘k and Gu∘Gu through its workspace, not shared memory:
+    a width that the CUDA-core kernel refused gets a plan, bounded by the chunk, the same
+    under either precision (float64 has one path)."""
+    plan = tsweep.sweep_plan(2**20, D, 1024, dtype=torch.float64)
+    assert plan == tsweep.sweep_plan(2**14, D, 1024, "fast", torch.float64)
+    Kp = -(-(2 * D + 2) // 16) * 16
+    assert plan["chunk"] == 16384
+    assert plan["workspace_bytes"] >= 8 * 3 * plan["chunk"] * Kp
+
+
+class _Library:
+    """A stand-in for the kernels' library: each entry point records its arguments and
+    returns 0 (cudaSuccess)."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple[str, tuple]] = []
+
+    def __getattr__(self, name: str):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+def test_float64_device_tensors_take_the_dmma_path(precision: str, monkeypatch) -> None:
+    lib = _Library()
+    for mod in (tgram, tsweep):
+        monkeypatch.setattr(mod, "load_library", lambda: lib)
+        monkeypatch.setattr(mod, "check_operands", lambda *args, **kwargs: None)
+        monkeypatch.setattr(mod, "launches", 0)
+        monkeypatch.setattr(mod, "path_launches", dict.fromkeys(mod.path_launches, 0))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+
+    def meta(*shape: int) -> torch.Tensor:  # not a CPU tensor, and nothing is allocated
+        return torch.empty(shape, dtype=torch.float64, device="meta")
+
+    n, d, D, G = 3001, 5, 4096, 77
+    M2 = 2 * D + 2
+    tgram.fused_augmented_gram(meta(n, d), meta(d, D), meta(1, D), meta(n), meta(n))
+    tsweep.fused_loo_sweep(meta(n, d), meta(d, D), meta(1, D), meta(n), meta(n), meta(n), meta(M2, M2),
+                           meta(M2, G), meta(M2), is_classifier=False, inv_c0=1.0, precision=precision)
+    assert [name for name, _ in lib.calls] == ["neo_gram_f64", "neo_sweep_f64"]
+    assert _build.PATH_FP64 == "fp64-dmma"
+    assert (tgram.launches, tsweep.launches) == (1, 1)
+    assert tgram.path_launches == {_build.PATH_TF32: 0, _build.PATH_FP64: 1}
+    assert tsweep.path_launches == {_build.PATH_TF32: 0, _build.PATH_TF32_1: 0, _build.PATH_FP64: 1}
+    gram_plan = tgram.gram_plan(n, D, torch.float64)
+    assert lib.calls[0][1][7:13] == (n, d, D, gram_plan["chunk"], gram_plan["splits"], gram_plan["kb_per_split"])
+    assert lib.calls[1][1][12:18] == (n, d, D, G, tsweep.sweep_plan(n, D, G, dtype=torch.float64)["chunk"], 0)
