@@ -45,8 +45,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
    device pre-transform, K1 once on the 3×TF32 path and K2 once on the one-pass path; γ
    near-optimal under the "high" fit's LOO error (rel 1e-3) and LOO R² within 0.01 of it;
    that K2 call held to f64 on the fit's own tensors under the one-pass limits (those of
-   ``sweep``) and timed; a repeat fast fit under torch.profiler (device time by kernel,
-   idle share).
+   ``sweep``) and timed, beside the time of its three products in cuBLAS TF32 on the same
+   tensors (``products_library_ms``, a yardstick the port never calls) and split by
+   product from torch.profiler (``split_ms``: Gu, sweep, feature build); a repeat fast fit
+   under torch.profiler (device time by kernel, idle share).
    ``fast_262k``: the in-memory route under "fast" (LOO R² within 0.005), and the TF32
    scope: every fit and serving call leaves the caller's ``fp32_precision`` as it found
    it, and a "high" model's ``predict_std`` and ``decision_function`` are bit-equal with
@@ -230,11 +232,15 @@ def _kernel_name(mangled: str) -> str:
 
 
 def ptxas_report(log: str) -> list[dict]:
-    """Registers and spilled bytes of each compiled kernel, from nvcc's -Xptxas -v output."""
+    """Registers and spilled bytes of each compiled kernel, from nvcc's -Xptxas -v output,
+    and ptxas's "Potential Performance Loss" remarks (a wgmma loop it had to serialize)."""
     kernels, current = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:
+        loss = re.search(r"Potential Performance Loss: (.*?) for the function '(\w+)'", line)
+        if loss:
+            kernels.append({"kernel": _kernel_name(loss.group(2)), "performance_loss": loss.group(1)})
+        elif entry:
             current = {"kernel": _kernel_name(entry.group(1))}
             kernels.append(current)
         elif current is not None and "spill stores" in line:
@@ -372,10 +378,68 @@ def gram_timings(args: list[torch.Tensor]) -> dict:
     return {**record, **bound(ops, nbytes, workspace), "shape": shape}
 
 
+def one_pass_products_library_ms(args: list[torch.Tensor], rows: int = 131_072) -> float:
+    """A yardstick of K2's one pass that the port never calls: its three products, W·Qs,
+    (Gu∘k)·r_all and (Gu∘Gu)·r_all, in cuBLAS TF32 on the same tensors, timed alone (CUDA
+    events around the products only, ``rows`` rows at a time, summed over the rows), with
+    W, Gu∘k and Gu∘Gu built beforehand and no epilogue. The median of three after one
+    warm-up."""
+    X, M_map, b_map, _, _, _, Qs, r_all, k = args
+    D = M_map.shape[1]
+    totals = []
+    for _ in range(4):
+        total = 0.0
+        for start in range(0, X.shape[0], rows):
+            with matmul_precision("ieee"):
+                U = X[start : start + rows] @ M_map + b_map.reshape(1, -1)
+            ones = torch.ones((U.shape[0], 1), dtype=U.dtype, device=U.device)
+            W = torch.cat([torch.cos(U) / math.sqrt(D), ones, torch.sin(U) / math.sqrt(D), 0 * ones], dim=1)
+            with matmul_precision("tf32"):
+                Gu = W @ Qs
+                Gk, Gg = Gu * k[None, :], Gu * Gu
+                start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start_ev.record()
+                W @ Qs, Gk @ r_all, Gg @ r_all
+                end_ev.record()
+            end_ev.synchronize()
+            total += start_ev.elapsed_time(end_ev)
+        totals.append(total)
+    return statistics.median(totals[1:])
+
+
+def one_pass_split_ms(args: list[torch.Tensor], kw: dict) -> dict:
+    """K2's one pass on these inputs split by kernel, device time from torch.profiler on one
+    call: its Gu product, its sweep product, its feature build and the rest (transposes,
+    the sum over row tiles, copies). The kernels are told apart by name (``gu``, ``loo``,
+    ``features``), which also reads a checkout whose kernels are named otherwise."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        sweep_mod.fused_loo_sweep(*args, **kw, precision="fast")
+        torch.cuda.synchronize()
+    split = {"gu_product_ms": 0.0, "sweep_product_ms": 0.0, "feature_build_ms": 0.0, "other_ms": 0.0}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
+        if us <= 0 or evt.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        if re.search(r"\bgu_|_gu_", evt.key):
+            part = "gu_product_ms"
+        elif re.search(r"\bloo_|_loo_", evt.key):
+            part = "sweep_product_ms"
+        elif "features_kernel" in evt.key:
+            part = "feature_build_ms"
+        else:
+            part = "other_ms"
+        split[part] += us / 1e3
+    check(split["gu_product_ms"] > 0 and split["sweep_product_ms"] > 0, f"one pass split: {split}")
+    return split
+
+
 def sweep_timings(args: list[torch.Tensor], kw: dict, precision: str = "high") -> dict:
     """K2's and its plain version's times on these f32 or f64 inputs at ``precision``, and
     its bound. Under "fast" the f32 plain version runs its Gu, num and lev products in cuBLAS
-    TF32, the one pass the kernel takes."""
+    TF32, the one pass the kernel takes; the record adds the yardstick of its three products
+    in cuBLAS TF32 (:func:`one_pass_products_library_ms`) and the kernel's split by
+    product (:func:`one_pass_split_ms`)."""
     X, M_map = args[0], args[1]
     n, d = X.shape
     D = M_map.shape[1]
@@ -386,6 +450,10 @@ def sweep_timings(args: list[torch.Tensor], kw: dict, precision: str = "high") -
         "plain_ms": time_ms(lambda: sweep_mod.sweep_plain(*args, **kw, precision=precision)),
         "library_ms": None,  # no single PyTorch call computes the LOO sweep
     }
+    if precision == "fast":
+        record["products_library_ms"] = one_pass_products_library_ms(args)
+        record["products_library"] = "W·Qs, (Gu∘k)·r_all, (Gu∘Gu)·r_all in cuBLAS TF32, operands built beforehand"
+        record["split_ms"] = one_pass_split_ms(args, kw)
     ops = 2 * n * M2 * M2 + 4 * n * M2 * G + 2 * n * d * D
     nbytes = X.element_size() * (n * d + 3 * n + d * D + D + M2 * M2 + M2 * G + M2 + 2 * G)
     Kp, Np, Gp = -(-M2 // 32) * 32, -(-M2 // 128) * 128, -(-G // 128) * 128
@@ -407,22 +475,23 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_product(A: torch.Tensor, B: torch.Tensor, passes: int) -> torch.Tensor:
-    """A·B as ``csrc/gemm_sm90.cuh``'s product loop computes it: the contraction in
-    k-blocks of 32, each one run of lo·hi + hi·lo + hi·hi (hi·hi alone for one pass) on
-    hi = tf32(v), lo = tf32(v − hi), the runs added in order into a float32 sum."""
-    pad = (-A.shape[1]) % 32
-    A = torch.nn.functional.pad(A, (0, pad))
-    B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+    """A·B as the kernels' product loops compute it, on hi = tf32(v), lo = tf32(v − hi).
+    Three passes (``csrc/gemm_sm90.cuh``): the contraction in k-blocks of 32, each one run
+    of lo·hi + hi·lo + hi·hi, the runs added in order into a float32 sum. One pass
+    (``csrc/gemm_sm90_1xtf32.cuh``): hi·hi, the whole contraction one run."""
     A_hi, B_hi = _tf32(A), _tf32(B)
-    A_lo, B_lo = _tf32(A - A_hi), _tf32(B - B_hi)
-    total = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32, device=A.device)
     with matmul_precision("ieee"):
+        if passes == 1:
+            return A_hi @ B_hi
+        pad = (-A.shape[1]) % 32
+        A = torch.nn.functional.pad(A, (0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        A_hi, B_hi = _tf32(A), _tf32(B)
+        A_lo, B_lo = _tf32(A - A_hi), _tf32(B - B_hi)
+        total = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32, device=A.device)
         for k0 in range(0, A.shape[1], 32):
             ks = slice(k0, k0 + 32)
-            run = A_hi[:, ks] @ B_hi[ks]
-            if passes == 3:
-                run = A_lo[:, ks] @ B_hi[ks] + A_hi[:, ks] @ B_lo[ks] + run
-            total += run
+            total += A_lo[:, ks] @ B_hi[ks] + A_hi[:, ks] @ B_lo[ks] + A_hi[:, ks] @ B_hi[ks]
     return total
 
 
@@ -1026,7 +1095,7 @@ def phase_fast(dev: torch.device, high_1m: dict) -> dict:
     record = {
         "name": "fused_loo_sweep_one_pass",
         "route": "cuda",
-        "source": "neo_ls_svm_torch/ops/cuda/csrc/sweep.cu",
+        "source": "neo_ls_svm_torch/ops/cuda/csrc/sweep_1xtf32.cu",
         "replaces": "neo_ls_svm_tpu/ops/pallas/sweep.py:111",
         "precision": "fast (mxu_precision=DEFAULT in the TPU kernel)",
         "launches": paths["fused_loo_sweep"][_build.PATH_TF32_1],

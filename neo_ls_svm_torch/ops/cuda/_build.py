@@ -35,8 +35,8 @@ _NVCC_FLAGS = (
 _LIB_NAME = "libneo_ls_svm_kernels.so"
 
 # The kernel paths of the wrappers: float32 runs the 3×TF32 tensor-core kernels
-# (csrc/gram.cu, csrc/sweep.cu), and K2 under precision="fast" their one-pass variant
-# (csrc/sweep.cu); float64 runs the FP64 tensor-core (DMMA) ones (csrc/*_fp64.cu).
+# (csrc/gram.cu, csrc/sweep.cu), and K2 under precision="fast" the one-pass kernels
+# (csrc/sweep_1xtf32.cu); float64 runs the FP64 tensor-core (DMMA) ones (csrc/*_fp64.cu).
 PATH_TF32 = "3xtf32-wgmma"
 PATH_TF32_1 = "1xtf32-wgmma"
 PATH_FP64 = "fp64-dmma"

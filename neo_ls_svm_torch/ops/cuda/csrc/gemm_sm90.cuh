@@ -1,26 +1,22 @@
-// The one product loop under K1 and K2's f32 paths: a TMA + wgmma TF32 tile product for
-// Hopper (sm_90a), in three passes or in one.
+// The product loop under K1 and K2's 3×TF32 paths: a TMA + wgmma TF32 tile product for
+// Hopper (sm_90a). K2's one-pass path has a loop of its own, gemm_sm90_1xtf32.cuh, which
+// shares this file's TMA, descriptor and register helpers.
 //
 // It computes, for a 128×128 output tile, C[m][n] = Σ_k A[m][k]·B[n][k] where A and B
-// are float32 matrices stored K-major (k contiguous). With PASSES = 3 each is already
-// split into a TF32 high part and a TF32 low part, a = a_hi + a_lo (store_split in
-// common.cuh), and every product is
+// are float32 matrices stored K-major (k contiguous), each already split into a TF32 high
+// part and a TF32 low part, a = a_hi + a_lo (store_split in common.cuh). Every product is
 //
 //     a_lo·b_hi + a_hi·b_lo + a_hi·b_hi,
 //
 // three tensor-core passes accumulated in f32 ("3×TF32"): about 21-22 bits of each
 // operand, the Hopper counterpart of the Pallas kernels' multi-pass precision=HIGHEST on
-// the MXU. With PASSES = 1 only the high part is stored and every product is a_hi·b_hi:
-// one pass, about three decimal digits, the counterpart of one MXU pass under
-// precision=DEFAULT (K2's reduced-precision path; K1 has none).
+// the MXU.
 //
 // What bounds a product built from this loop: the tensor cores' TF32 rate, 495 TFLOP/s
-// dense on an H100 SXM, so 495/PASSES TFLOP/s of f32-equivalent product. A k-block of
-// one pass loads half the bytes of three passes' for a third of the tensor-core work, so
-// at the same rate of passes its tiles must arrive 1.5× as fast: one pass leans harder
-// on the loads from L2. The loop feeds the tensor cores like this:
-//  * A ring of STAGES shared-memory stages. Each stage holds the planes (hi, and lo for
-//    three passes) of NA operands A that share the B tile, and the B tile's planes, 128
+// dense on an H100 SXM, so 165 TFLOP/s of f32-equivalent product. The loop feeds the
+// tensor cores like this:
+//  * A ring of STAGES shared-memory stages. Each stage holds the hi and lo planes of NA
+//    operands A that share the B tile, and the B tile's planes, 128
 //    rows × 32 floats each: one 128-byte swizzle row per tile row, written by TMA with
 //    CU_TENSOR_MAP_SWIZZLE_128B, which is the layout wgmma's 128-byte-swizzled K-major
 //    descriptors read.
@@ -30,12 +26,12 @@
 //    the consumers (setmaxnreg): a consumer thread may hold 232, which two accumulators
 //    and a run buffer (3·64) need. Without it each of 9 or 12 warps gets at most 168.
 //  * Two consumer warpgroups, rows 0-63 and 64-127 of the tile, issue
-//    wgmma.m64n128k8.f32.tf32.tf32 on the stage: four k-steps of 8, PASSES products each,
+//    wgmma.m64n128k8.f32.tf32.tf32 on the stage: four k-steps of 8, three products each,
 //    for each of the NA accumulators.
 //  * Accumulation runs are bounded. The tensor cores' f32 accumulation need not round to
 //    nearest, so its error grows with the run's length: on an H100, one run over K2's
 //    whole contraction (2M = 3602) left the sweep many times further from float64 than
-//    the f32 plain version. So every k-block of 32 (4·PASSES products) starts a fresh wgmma
+//    the f32 plain version. So every k-block of 32 (12 products) starts a fresh wgmma
 //    accumulator, which is then added into a register sum in IEEE f32.
 //  * The output order is fixed and there are no atomics: a caller's epilogue reads the
 //    accumulators through acc_row/acc_col and writes each element from one thread.
@@ -59,13 +55,10 @@ constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup (one thread works)
 constexpr int kAcc = kBN / 2;            // accumulator registers per thread (m64n128)
 
-// The TF32 planes a product of PASSES passes reads: hi and lo, or hi alone.
-__host__ __device__ constexpr int planes_of(int passes) { return passes == 3 ? 2 : 1; }
+constexpr int kPlanes = 2;               // TF32 planes of every operand: hi and lo
 
-template <int NA, int STAGES, int PASSES = 3>
+template <int NA, int STAGES>
 struct Pipe {
-  static_assert(PASSES == 1 || PASSES == 3, "a product takes one TF32 pass or three");
-  static constexpr int kPlanes = planes_of(PASSES);
   float a[STAGES][kPlanes * NA][kTileFloats];  // the planes of each of the NA operands
   float b[STAGES][kPlanes][kTileFloats];       // the planes of B
   uint64_t full[STAGES];
@@ -73,9 +66,9 @@ struct Pipe {
 };
 
 // Dynamic shared memory for a Pipe and `extra` bytes after it, with room to align.
-template <int NA, int STAGES, int PASSES = 3>
+template <int NA, int STAGES>
 constexpr int pipe_smem_bytes(int extra) {
-  return static_cast<int>(sizeof(Pipe<NA, STAGES, PASSES>)) + extra + 1024;
+  return static_cast<int>(sizeof(Pipe<NA, STAGES>)) + extra + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -84,11 +77,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // The Pipe at the first 1024-byte boundary of dynamic shared memory (the swizzle atom's
 // alignment), its barriers initialised. Every thread of the block calls it.
-template <int NA, int STAGES, int PASSES = 3>
-__device__ __forceinline__ Pipe<NA, STAGES, PASSES>& pipe_setup() {
+template <int NA, int STAGES>
+__device__ __forceinline__ Pipe<NA, STAGES>& pipe_setup() {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  auto& p = *reinterpret_cast<Pipe<NA, STAGES, PASSES>*>(smem_raw + pad);
+  auto& p = *reinterpret_cast<Pipe<NA, STAGES>*>(smem_raw + pad);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -171,13 +164,12 @@ __device__ __forceinline__ int acc_row(int i) {
 }
 __device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x % 4) + (i & 1); }
 
-// The producer: k-blocks kb0 .. kb0+kblocks-1 of the A planes 0 .. P·NA-1 at row m0 and
-// of the B planes 0 .. P-1 at row n0, P = planes_of(PASSES) (one pass loads no lo plane).
-// One thread calls it.
-template <int NA, int STAGES, int PASSES>
-__device__ void produce(Pipe<NA, STAGES, PASSES>& p, const CUtensorMap* tmA,
-                        const CUtensorMap* tmB, int m0, int n0, int kb0, int kblocks) {
-  constexpr int P = planes_of(PASSES);
+// The producer: k-blocks kb0 .. kb0+kblocks-1 of the A planes 0 .. 2·NA-1 at row m0 and
+// of the B planes 0, 1 at row n0. One thread calls it.
+template <int NA, int STAGES>
+__device__ void produce(Pipe<NA, STAGES>& p, const CUtensorMap* tmA, const CUtensorMap* tmB,
+                        int m0, int n0, int kb0, int kblocks) {
+  constexpr int P = kPlanes;
   constexpr uint32_t kBytes = (P * NA + P) * kTileFloats * sizeof(float);
   int stage = 0;
   uint32_t phase = 0;
@@ -199,13 +191,13 @@ __device__ void produce(Pipe<NA, STAGES, PASSES>& p, const CUtensorMap* tmA,
   }
 }
 
-// The consumers: acc[a] = Σ over the k-blocks of A_a·Bᵀ in PASSES TF32 passes, for this
-// thread's accumulator registers. Each k-block of each operand is one wgmma run of
-// 4·PASSES products into `run`, which is then added into acc in IEEE f32. The NA operands
-// take turns on the one run buffer, so two accumulators cost 3·64 registers, not 4·64.
-template <int NA, int STAGES, int PASSES>
-__device__ void consume(Pipe<NA, STAGES, PASSES>& p, int kblocks, float (&acc)[NA][kAcc]) {
-  constexpr int P = planes_of(PASSES);
+// The consumers: acc[a] = Σ over the k-blocks of A_a·Bᵀ in 3×TF32, for this thread's
+// accumulator registers. Each k-block of each operand is one wgmma run of 12 products into
+// `run`, which is then added into acc in IEEE f32. The NA operands take turns on the one
+// run buffer, so two accumulators cost 3·64 registers, not 4·64.
+template <int NA, int STAGES>
+__device__ void consume(Pipe<NA, STAGES>& p, int kblocks, float (&acc)[NA][kAcc]) {
+  constexpr int P = kPlanes;
   const int wg_row = (threadIdx.x / 128) * 64 * kBK;  // this warpgroup's 64 rows of A
   float run[kAcc];
 #pragma unroll
@@ -217,7 +209,7 @@ __device__ void consume(Pipe<NA, STAGES, PASSES>& p, int kblocks, float (&acc)[N
   for (int kb = 0; kb < kblocks; ++kb) {
     mbar_wait(&p.full[stage], phase);
     const uint64_t b_hi = desc_b128(p.b[stage][0]);
-    const uint64_t b_lo = desc_b128(p.b[stage][P - 1]);  // three passes only
+    const uint64_t b_lo = desc_b128(p.b[stage][1]);
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
       fence_acc(run);
@@ -225,14 +217,10 @@ __device__ void consume(Pipe<NA, STAGES, PASSES>& p, int kblocks, float (&acc)[N
 #pragma unroll
       for (int kk = 0; kk < kBK / 8; ++kk) {
         const uint64_t a_hi = desc_b128(p.a[stage][P * a] + wg_row) + 2 * kk;
-        if constexpr (PASSES == 3) {
-          const uint64_t a_lo = desc_b128(p.a[stage][P * a + 1] + wg_row) + 2 * kk;
-          wgmma_tf32(run, a_lo, b_hi + 2 * kk, kk > 0);  // the small terms first; the run's
-          wgmma_tf32(run, a_hi, b_lo + 2 * kk, 1);       // first product overwrites
-          wgmma_tf32(run, a_hi, b_hi + 2 * kk, 1);
-        } else {
-          wgmma_tf32(run, a_hi, b_hi + 2 * kk, kk > 0);
-        }
+        const uint64_t a_lo = desc_b128(p.a[stage][P * a + 1] + wg_row) + 2 * kk;
+        wgmma_tf32(run, a_lo, b_hi + 2 * kk, kk > 0);  // the small terms first; the run's
+        wgmma_tf32(run, a_hi, b_lo + 2 * kk, 1);       // first product overwrites
+        wgmma_tf32(run, a_hi, b_hi + 2 * kk, 1);
       }
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");

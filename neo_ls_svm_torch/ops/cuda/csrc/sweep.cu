@@ -1,10 +1,10 @@
 // K2 (float32): fused leave-one-out γ-sweep, on Hopper's tensor cores (sm_90a), in
-// 3×TF32 or in one TF32 pass. The float64 path is sweep_fp64.cu.
+// 3×TF32. The one-pass path (precision="fast") is sweep_1xtf32.cu, the float64 path
+// sweep_fp64.cu; neo_sweep_f32 below is the entry point of both float32 paths.
 //
 // Replaces the TPU kernel neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep (kernel
-// body _sweep_kernel) on both of its paths: mxu_precision=HIGHEST (multi-pass MXU dots)
-// is the 3×TF32 path, mxu_precision=DEFAULT (one bf16 MXU pass per dot, precision="fast")
-// the one-pass path. For every row i and every γ_g of the grid it evaluates
+// body _sweep_kernel) under mxu_precision=HIGHEST (multi-pass MXU dots). For every row i
+// and every γ_g of the grid it evaluates
 //
 //     W_i  = [cos U_i/√D, 1, sin U_i/√D, 0],   U_i = x_i·M + b,   Gu_i = W_i·Qs
 //     num  = (1/c₀)·Σ_j Gu_ij·k_j·r_jg,        lev = (1/c₀)·s²_i·Σ_j Gu_ij²·r_jg
@@ -16,17 +16,16 @@
 // What bounds it on this card: the tensor cores' TF32 operations. With 2M = 2D+2 basis
 // columns and G values of γ it does 2·n·(2M)² FLOP for Gu and 4·n·2M·G for num and lev,
 // 6.6 TFLOP of f32 products at n = 1,048,576, 2M = 1026, G = 1024; 3×TF32 issues each
-// three times against 495 TFLOP/s, one pass once (about 13 ms at the peak).
+// three times against 495 TFLOP/s.
 //
-// What the design does about it (per row chunk, the rows walked in chunks; P = 2 TF32
-// planes, hi and lo, for three passes, P = 1, hi alone, for one):
-//  (a) features.cu writes the chunk's W, row-major, in its P planes. U = X·M + b stays in
-//      f32 FMAs on both paths.
+// What the design does about it (per row chunk, the rows walked in chunks):
+//  (a) features.cu writes the chunk's W, row-major, in its TF32 hi and lo planes. U = X·M + b
+//      stays in f32 FMAs.
 //  (b) The product loop of gemm_sm90.cuh computes Gu = W·Qs as 128×128 tiles against
-//      Qsᵀ (split once per call). Its epilogue writes Gu∘k and Gu∘Gu in P planes,
+//      Qsᵀ (split once per call). Its epilogue writes Gu∘k and Gu∘Gu in hi and lo planes,
 //      row-major: the A operands of (c).
 //  (c) The product loop computes num and lev as two accumulators that share each B tile
-//      of r_allᵀ (split once per call), 2·PASSES wgmma per k-step. Its epilogue forms e, the
+//      of r_allᵀ (split once per call), 6 wgmma per k-step. Its epilogue forms e, the
 //      classifier clip and the weighted sums over the tile's 128 rows (warp shuffles, then
 //      the 8 warps in order through shared memory), and adds them into the partials of
 //      its (row tile, γ).
@@ -39,171 +38,91 @@
 
 #include "features.cuh"
 #include "gemm_sm90.cuh"
+#include "sweep_epilogue.cuh"
+
+namespace neo {
+// The one-pass sweep (sweep_1xtf32.cu), with neo_sweep_f32's arguments.
+cudaError_t sweep_1xtf32(const float* X, const float* Mmap, const float* bmap, const float* y,
+                         const float* s, const float* s2, const float* Qs, const float* r_all,
+                         const float* k, float* err, float* obj, float* workspace, int64_t n,
+                         int d, int D, int G, int chunk, int is_classifier, float inv_sqrt_d,
+                         float inv_c0, cudaStream_t st);
+}  // namespace neo
 
 namespace {
 
 using namespace neo::sm90;
 using neo::store_split;
+using neo::sweep_f32::loo_epilogue;
+using neo::sweep_f32::sweep_sum_kernel;
 
-constexpr int kWarps = kConsumers / 32;
-constexpr int kReduceBytes = kWarps * kBN * 2 * sizeof(float);
+constexpr int kReduceBytes = neo::sweep_f32::reduce_bytes<kBN>();
 
-// Stages of each product: a Gu stage holds 2·P tiles, a sweep stage 3·P (two A operands
-// and r_allᵀ), 16 KB each; as many as fit in shared memory with the epilogue's buffer.
-template <int PASSES>
-constexpr int kStagesGu = PASSES == 3 ? 3 : 6;
-template <int PASSES>
-constexpr int kStagesLoo = PASSES == 3 ? 2 : 4;
+// Stages of each product: a Gu stage holds 4 tiles, a sweep stage 6 (the hi and lo planes
+// of two A operands and of r_allᵀ), 16 KB each; as many as fit in shared memory with the
+// epilogue's buffer.
+constexpr int kStagesGu = 3;
+constexpr int kStagesLoo = 2;
 
-// (b): GG planes, leading dimension ldk: for P = 2, 0, 1 = Gu∘k (hi, lo) and 2, 3 = Gu∘Gu
-// (hi, lo); for P = 1, 0 = Gu∘k and 1 = Gu∘Gu.
-template <int PASSES>
+// (b): GG planes, leading dimension ldk: 0, 1 = Gu∘k (hi, lo) and 2, 3 = Gu∘Gu (hi, lo).
 __global__ void __launch_bounds__(kThreads, 1)
     sweep_gu_kernel(const __grid_constant__ CUtensorMap tmW, const __grid_constant__ CUtensorMap tmQ,
                     float* __restrict__ GG, int64_t plane, int ldk, const float* __restrict__ k,
                     int M2, int n_tiles, int kblocks) {
-  constexpr int P = planes_of(PASSES);
-  auto& p = pipe_setup<1, kStagesGu<PASSES>, PASSES>();
+  auto& p = pipe_setup<1, kStagesGu>();
   const int m0 = (blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * kBN;
   if (threadIdx.x >= kConsumers) {
     producer_registers();
-    if (threadIdx.x == kConsumers) produce<1, kStagesGu<PASSES>>(p, &tmW, &tmQ, m0, n0, 0, kblocks);
+    if (threadIdx.x == kConsumers) produce<1, kStagesGu>(p, &tmW, &tmQ, m0, n0, 0, kblocks);
   } else {
     consumer_registers();
     float acc[1][kAcc];
-    consume<1, kStagesGu<PASSES>>(p, kblocks, acc);
+    consume<1, kStagesGu>(p, kblocks, acc);
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int c = n0 + acc_col(i);
       if (c < ldk) {
         const float gu = acc[0][i];
         float* o = GG + static_cast<int64_t>(m0 + acc_row(i)) * ldk + c;
-        store_split<P>(o, plane, gu * (c < M2 ? k[c] : 0.0f));
-        store_split<P>(o + P * plane, plane, gu * gu);
+        store_split<2>(o, plane, gu * (c < M2 ? k[c] : 0.0f));
+        store_split<2>(o + 2 * plane, plane, gu * gu);
       }
     }
-  }
-}
-
-// The epilogue of (c) for the consumer threads: rows row0 + (0..127) of the chunk's row
-// tile mt, γ columns n0 + (0..127).
-__device__ __forceinline__ void loo_epilogue(const float (&acc)[2][kAcc], float* red,
-                                             float* __restrict__ part_err,
-                                             float* __restrict__ part_obj, int ldp,
-                                             const float* __restrict__ y,
-                                             const float* __restrict__ s,
-                                             const float* __restrict__ s2, int64_t row0,
-                                             int64_t n, int mt, int n0, int is_classifier,
-                                             float inv_c0, int accumulate) {
-  // This thread's two rows (h = 0, 1: acc_row(2h)), masked past n.
-  bool valid[2];
-  float yv[2], sv[2], s2v[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int64_t g = row0 + acc_row(2 * h);
-    valid[h] = g < n;
-    yv[h] = valid[h] ? y[g] : 0.0f;
-    sv[h] = valid[h] ? s[g] : 0.0f;
-    s2v[h] = valid[h] ? s2[g] : 0.0f;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int jg = 0; jg < kAcc / 4; ++jg) {  // columns 8·jg + 2·(lane % 4) + {0, 1}
-    float err[2] = {0.0f, 0.0f}, obj[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = 4 * jg + q, h = q >> 1, c = q & 1;
-      if (valid[h]) {
-        const float num = inv_c0 * acc[0][i];
-        const float lev = inv_c0 * s2v[h] * acc[1][i];
-        float e = (num - yv[h]) / (1.0f - lev);
-        if (is_classifier && ((yv[h] > 0.0f && e > 0.0f) || (yv[h] < 0.0f && e < 0.0f))) e = 0.0f;
-        const float ae = fabsf(e);
-        const float t = sv[h] * ae;
-        err[c] += t;
-        obj[c] += is_classifier ? t + sv[h] * (ae >= 1.0f ? 1.0f : 0.0f) + sv[h] * fmaxf(0.0f, ae - 1.0f) : t;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) {  // the 8 lanes of a column
-        err[c] += __shfl_xor_sync(0xffffffffu, err[c], off);
-        obj[c] += __shfl_xor_sync(0xffffffffu, obj[c], off);
-      }
-      if (lane < 4) {
-        float* r = red + (warp * kBN + 8 * jg + 2 * lane + c) * 2;
-        r[0] = err[c];
-        r[1] = obj[c];
-      }
-    }
-  }
-  consumers_sync();
-  if (threadIdx.x < kBN) {
-    float e = 0.0f, o = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      e += red[(w * kBN + threadIdx.x) * 2];
-      o += red[(w * kBN + threadIdx.x) * 2 + 1];
-    }
-    const int64_t at = static_cast<int64_t>(mt) * ldp + n0 + threadIdx.x;
-    if (accumulate) {
-      e += part_err[at];
-      o += part_obj[at];
-    }
-    part_err[at] = e;
-    part_obj[at] = o;
   }
 }
 
 // (c): the residuals of 128 rows × 128 values of γ and their weighted sums over the rows.
-template <int PASSES>
 __global__ void __launch_bounds__(kThreads, 1)
     sweep_loo_kernel(const __grid_constant__ CUtensorMap tmGG, const __grid_constant__ CUtensorMap tmR,
                      float* __restrict__ part_err, float* __restrict__ part_obj, int ldp,
                      const float* __restrict__ y, const float* __restrict__ s,
                      const float* __restrict__ s2, int64_t r0, int64_t n, int g_tiles,
                      int kblocks, int is_classifier, float inv_c0, int accumulate) {
-  auto& p = pipe_setup<2, kStagesLoo<PASSES>, PASSES>();
+  auto& p = pipe_setup<2, kStagesLoo>();
   float* red = reinterpret_cast<float*>(&p + 1);  // [warp][column][err, obj]
   const int mt = blockIdx.x / g_tiles;
   const int m0 = mt * kBM;
   const int n0 = (blockIdx.x % g_tiles) * kBN;
   if (threadIdx.x >= kConsumers) {
     producer_registers();
-    if (threadIdx.x == kConsumers) produce<2, kStagesLoo<PASSES>>(p, &tmGG, &tmR, m0, n0, 0, kblocks);
+    if (threadIdx.x == kConsumers) produce<2, kStagesLoo>(p, &tmGG, &tmR, m0, n0, 0, kblocks);
   } else {
     consumer_registers();
     float acc[2][kAcc];
-    consume<2, kStagesLoo<PASSES>>(p, kblocks, acc);
-    loo_epilogue(acc, red, part_err, part_obj, ldp, y, s, s2, r0 + m0, n, mt, n0, is_classifier,
-                 inv_c0, accumulate);
+    consume<2, kStagesLoo>(p, kblocks, acc);
+    loo_epilogue<kBN>(acc, red, part_err, part_obj, ldp, y, s, s2, r0 + m0, n, mt, n0, is_classifier,
+                      inv_c0, accumulate);
   }
 }
 
-// err[g], obj[g] = Σ over the row tiles, in order.
-__global__ void sweep_sum_kernel(const float* __restrict__ part_err,
-                                 const float* __restrict__ part_obj, int ldp, int row_tiles,
-                                 int G, float* __restrict__ err, float* __restrict__ obj) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  float e = 0.0f, o = 0.0f;
-  for (int t = 0; t < row_tiles; ++t) {
-    e += part_err[static_cast<int64_t>(t) * ldp + g];
-    o += part_obj[static_cast<int64_t>(t) * ldp + g];
-  }
-  err[g] = e;
-  obj[g] = o;
-}
-
-// The whole sweep on one stream, with PASSES TF32 passes a product; see neo_sweep_f32.
-template <int PASSES>
+// The whole 3×TF32 sweep on one stream; see neo_sweep_f32.
 cudaError_t run_sweep(const float* X, const float* Mmap, const float* bmap, const float* y,
                       const float* s, const float* s2, const float* Qs, const float* r_all,
                       const float* k, float* err, float* obj, float* workspace, int64_t n, int d,
                       int D, int G, int chunk, int is_classifier, float inv_sqrt_d, float inv_c0,
                       cudaStream_t st) {
-  constexpr int P = planes_of(PASSES);
+  constexpr int P = kPlanes;
   const int M2 = 2 * D + 2;
   const int Kp = (M2 + kBK - 1) / kBK * kBK;
   const int Np = (M2 + kBN - 1) / kBN * kBN;
@@ -225,11 +144,11 @@ cudaError_t run_sweep(const float* X, const float* Mmap, const float* bmap, cons
   if ((status = make_tile_map(&tmQ, Qt, Kp, Np, P)) != cudaSuccess) return status;
   if ((status = make_tile_map(&tmGG, GG, Kp, chunk, 2 * P)) != cudaSuccess) return status;
   if ((status = make_tile_map(&tmR, Rt, Kp, Gp, P)) != cudaSuccess) return status;
-  const int smem_gu = pipe_smem_bytes<1, kStagesGu<PASSES>, PASSES>(0);
-  const int smem_loo = pipe_smem_bytes<2, kStagesLoo<PASSES>, PASSES>(kReduceBytes);
-  status = cudaFuncSetAttribute(sweep_gu_kernel<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_gu);
+  const int smem_gu = pipe_smem_bytes<1, kStagesGu>(0);
+  const int smem_loo = pipe_smem_bytes<2, kStagesLoo>(kReduceBytes);
+  status = cudaFuncSetAttribute(sweep_gu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_gu);
   if (status != cudaSuccess) return status;
-  status = cudaFuncSetAttribute(sweep_loo_kernel<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_loo);
+  status = cudaFuncSetAttribute(sweep_loo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_loo);
   if (status != cudaSuccess) return status;
 
   for (int64_t r0 = 0; r0 < n; r0 += chunk) {
@@ -238,10 +157,10 @@ cudaError_t run_sweep(const float* X, const float* Mmap, const float* bmap, cons
     status = neo::launch_features(neo::FeatureLayout::kSweepW, X, Mmap, bmap, s2, y, W, plane, P,
                                   Kp, r0, n, row_tiles * kBM, d, D, Kp, inv_sqrt_d, st);
     if (status != cudaSuccess) return status;
-    sweep_gu_kernel<PASSES><<<row_tiles * (Np / kBN), kThreads, smem_gu, st>>>(
+    sweep_gu_kernel<<<row_tiles * (Np / kBN), kThreads, smem_gu, st>>>(
         tmW, tmQ, GG, plane, Kp, k, M2, Np / kBN, Kp / kBK);
     if ((status = cudaGetLastError()) != cudaSuccess) return status;
-    sweep_loo_kernel<PASSES><<<row_tiles * (Gp / kBN), kThreads, smem_loo, st>>>(
+    sweep_loo_kernel<<<row_tiles * (Gp / kBN), kThreads, smem_loo, st>>>(
         tmGG, tmR, part_err, part_obj, Gp, y, s, s2, r0, n, Gp / kBN, Kp / kBK, is_classifier,
         inv_c0, r0 > 0);
     if ((status = cudaGetLastError()) != cudaSuccess) return status;
@@ -254,18 +173,19 @@ cudaError_t run_sweep(const float* X, const float* Mmap, const float* bmap, cons
 
 extern "C" {
 
-// The workspace (floats), for Kp = 2M rounded up to 32, Np = 2M rounded up to 128, Gp = G
-// rounded up to 128 and P = 2 planes for passes = 3, P = 1 for passes = 1: W (P·chunk·Kp),
-// GG (2·P·chunk·Kp), Qsᵀ (P·Np·Kp), r_allᵀ (P·Gp·Kp), then the err and obj partials
-// (2·(chunk/128)·Gp); the wrapper's plan sizes it. chunk is a multiple of 128 and at most
-// the first chunk's rows rounded up to 128. passes is 3 (3×TF32) or 1 (one TF32 pass).
+// K2 in float32. passes = 3 runs the 3×TF32 sweep above; its workspace (floats), for
+// Kp = 2M rounded up to 32, Np = 2M rounded up to 128 and Gp = G rounded up to 128: W
+// (2·chunk·Kp), GG (4·chunk·Kp), Qsᵀ (2·Np·Kp), r_allᵀ (2·Gp·Kp), then the err and obj
+// partials (2·(chunk/128)·Gp); chunk is a multiple of 128 and at most the first chunk's
+// rows rounded up to 128. passes = 1 runs the one-pass sweep of sweep_1xtf32.cu, with the
+// workspace and chunk that its neo::sweep_1xtf32 states. The wrapper's plan sizes both.
 int neo_sweep_f32(const void* X, const void* Mmap, const void* bmap, const void* y,
                   const void* s, const void* s2, const void* Qs, const void* r_all,
                   const void* k, void* err, void* obj, void* workspace, int64_t n, int d, int D,
                   int G, int chunk, int is_classifier, int passes, float inv_sqrt_d, float inv_c0,
                   void* stream) {
   if (passes != 1 && passes != 3) return cudaErrorInvalidValue;
-  const auto run = passes == 3 ? &run_sweep<3> : &run_sweep<1>;
+  const auto run = passes == 3 ? &run_sweep : &neo::sweep_1xtf32;
   return run(static_cast<const float*>(X), static_cast<const float*>(Mmap),
              static_cast<const float*>(bmap), static_cast<const float*>(y),
              static_cast<const float*>(s), static_cast<const float*>(s2),

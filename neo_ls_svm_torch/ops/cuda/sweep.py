@@ -3,10 +3,11 @@
 ``fused_loo_sweep`` evaluates, for every γ of the grid, the weighted LOO error and the
 γ-selection objective of the streaming solver's second pass. On a CUDA tensor it launches
 the hand-written kernels that port ``neo_ls_svm_tpu/ops/pallas/sweep.py::fused_loo_sweep``:
-in float32 ``csrc/sweep.cu`` on the TMA + wgmma TF32 product loop of ``csrc/gemm_sm90.cuh``,
-in float64 ``csrc/sweep_fp64.cu`` on the TMA + DMMA product loop of
-``csrc/gemm_sm90_f64.cuh`` (the FP64 tensor cores). On a CPU tensor it runs
-:func:`sweep_plain`. There is no fallback from one to the other.
+in float32 ``csrc/sweep.cu`` on the TMA + wgmma 3×TF32 product loop of
+``csrc/gemm_sm90.cuh``, or under ``precision="fast"`` ``csrc/sweep_1xtf32.cu`` on the
+persistent one-pass loop of ``csrc/gemm_sm90_1xtf32.cuh``; in float64 ``csrc/sweep_fp64.cu``
+on the TMA + DMMA product loop of ``csrc/gemm_sm90_f64.cuh`` (the FP64 tensor cores). On a
+CPU tensor it runs :func:`sweep_plain`. There is no fallback from one to the other.
 
 ``precision`` mirrors the Pallas kernel's ``mxu_precision``: ``"high"`` (HIGHEST) runs
 float32 in 3×TF32, ``"fast"`` (DEFAULT) in one TF32 pass, each counted under its own path.
@@ -35,13 +36,20 @@ path_launches = {PATH_TF32: 0, PATH_TF32_1: 0, PATH_FP64: 0}  # the same launche
 _PASSES = {"high": 3, "fast": 1}
 
 _TILE = 128  # kBM = kBN in csrc/gemm_sm90.cuh; kBM and the Gu tile's kBNGu in csrc/sweep_fp64.cu
-_KBLOCK = 32  # kBK in csrc/gemm_sm90.cuh
+_KBLOCK = 32  # kBK in csrc/gemm_sm90.cuh and csrc/gemm_sm90_1xtf32.cuh
+# The one-pass loop (csrc/gemm_sm90_1xtf32.cuh, csrc/sweep_1xtf32.cu): kBN, the columns of a
+# Gu tile and the values of γ of a sweep tile; kRowsGu, the rows of a Gu tile (a sweep tile
+# has half).
+_TILE_1X, _ROWS_1X = 176, 256
 _KBLOCK_F64 = 16  # kBK in csrc/gemm_sm90_f64.cuh
 _GAMMA_TILE_F64 = 64  # kBNLoo in csrc/sweep_fp64.cu: values of γ per sweep tile
 # Rows per chunk, in either dtype. The Gu and sweep products then launch 1152 and 1024
 # blocks a chunk in float32 (2M = 1026, G = 1024: 8.7 and 7.8 waves of the H100's 132 SMs),
 # 1152 and 2048 in float64.
 _CHUNK_ROWS = 16384
+# The one-pass kernels' chunk: their blocks are persistent, so a chunk costs one start and
+# one tail of each; twice as many rows a chunk ran faster on the card (PERF.md §6).
+_CHUNK_ROWS_1X = 32768
 
 
 def sweep_plan(
@@ -52,21 +60,46 @@ def sweep_plan(
     The workspace holds the chunk's W and Gu∘k, Gu∘Gu, Qsᵀ and r_allᵀ, in float32 in their
     TF32 planes (hi and lo under "high", hi alone under "fast"), in float64 in one plane
     under either, and the chunk's row-tile partials: it is bounded by the chunk, not by n,
-    and any D fits.
+    and any D fits. Under "fast" the plan also gives the one-pass kernels' tiles: ``tile``
+    columns of Gu (``col_tiles`` of them) and values of γ (``gamma_tiles``) a tile,
+    ``row_tile`` rows of a Gu tile.
     """
     M2 = 2 * D + 2
     Np = -(-M2 // _TILE) * _TILE
+    if dtype == torch.float32 and _PASSES[precision] == 1:
+        return _one_pass_plan(n, M2, G)
     chunk = min(_CHUNK_ROWS, -(-max(n, 1) // _TILE) * _TILE)
     if dtype == torch.float64:
         Kp = -(-M2 // _KBLOCK_F64) * _KBLOCK_F64
         Gp = -(-G // _GAMMA_TILE_F64) * _GAMMA_TILE_F64
         elements = 3 * chunk * Kp + Np * Kp + Gp * Kp + 2 * (chunk // _TILE) * Gp
         return {"chunk": chunk, "workspace_bytes": 8 * elements}
-    planes = 2 if _PASSES[precision] == 3 else 1
     Kp = -(-M2 // _KBLOCK) * _KBLOCK
     Gp = -(-G // _TILE) * _TILE
-    floats = planes * (3 * chunk * Kp + Np * Kp + Gp * Kp) + 2 * (chunk // _TILE) * Gp
+    floats = 2 * (3 * chunk * Kp + Np * Kp + Gp * Kp) + 2 * (chunk // _TILE) * Gp
     return {"chunk": chunk, "workspace_bytes": 4 * floats}
+
+
+def _one_pass_plan(n: int, M2: int, G: int) -> dict[str, int]:
+    """``csrc/sweep_1xtf32.cu``'s chunk (a multiple of the Gu tile's rows), tiles and
+    workspace: W (its TF32 plane) and Gu (float32) of the chunk, Qsᵀ and r_allᵀ padded to
+    whole tiles, k padded to Kp, and the partials of the chunk's 128-row sweep tiles."""
+    chunk = min(_CHUNK_ROWS_1X, -(-max(n, 1) // _ROWS_1X) * _ROWS_1X)
+    Kp = -(-M2 // _KBLOCK) * _KBLOCK
+    col_tiles = -(-Kp // _TILE_1X)
+    Nq = -(-(col_tiles * _TILE_1X) // _KBLOCK) * _KBLOCK
+    gamma_tiles = -(-G // _TILE_1X)
+    Gq = gamma_tiles * _TILE_1X
+    Gr = -(-Gq // _KBLOCK) * _KBLOCK
+    floats = 2 * chunk * Kp + Nq * Kp + Gr * Kp + Kp + 2 * (chunk // (_ROWS_1X // 2)) * Gq
+    return {
+        "chunk": chunk,
+        "workspace_bytes": 4 * floats,
+        "tile": _TILE_1X,
+        "row_tile": _ROWS_1X,
+        "col_tiles": col_tiles,
+        "gamma_tiles": gamma_tiles,
+    }
 
 
 @matmul_precision("ieee")

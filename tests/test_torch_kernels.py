@@ -8,12 +8,15 @@ kernels themselves run only on the card: ``chip_smoke.py`` holds them against th
 plain versions there.) A torch emulation of the kernels' 3×TF32 products, with the same
 hi/lo split and k-blocks, is held against the plain versions in float64 under
 ``chip_smoke.py``'s f32 limits, and one-pass TF32 must break them. The same emulation with
-one pass (K2's ``precision="fast"`` path) is held to ``chip_smoke.py``'s one-pass limits,
-and must stay at least 10× further from float64 than three passes. A CPU tensor runs the
-plain version in IEEE under either precision. The kernels' chunk plans must keep their
-workspace independent of n, in float32 and in float64, and the float64 sweep's plan takes
-any width. A float64 tensor on another device than the CPU reaches the float64 (DMMA)
-entry points, counted under their path, with a stand-in library.
+one pass (K2's ``precision="fast"`` path, whose loop accumulates a tile's whole
+contraction in one run) is held to ``chip_smoke.py``'s one-pass limits, must stay at least
+10× further from float64 than three passes, and moves by less than a tenth of that
+distance against one-k-block runs. A CPU tensor runs the plain version in IEEE under
+either precision. The kernels' chunk plans must keep their workspace independent of n, in
+float32 and in float64; the one-pass plan's tiles cover every column and γ once; the
+float64 sweep's plan takes any width. A float64 tensor on another device than the CPU
+reaches the float64 (DMMA) entry points, and a "fast" float32 one the one-pass entry,
+counted under their paths, with a stand-in library.
 """
 
 import contextlib
@@ -147,25 +150,29 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _product(A: torch.Tensor, B: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """A·B as the kernels' product loop computes it: the contraction in k-blocks of 32,
-    each one run of lo·hi + hi·lo + hi·hi (hi·hi alone for ``passes=1``) in float32 on
-    hi = tf32(v), lo = tf32(v − hi), and the runs added into a float32 sum in order."""
+def _product(A: torch.Tensor, B: torch.Tensor, passes: int = 3, run_blocks: int | None = None) -> torch.Tensor:
+    """A·B as the kernels' product loops compute it, on hi = tf32(v), lo = tf32(v − hi):
+    the contraction in runs of ``run_blocks`` k-blocks of 32, each run lo·hi + hi·lo + hi·hi
+    (hi·hi alone for ``passes=1``) in float32, the runs added into a float32 sum in order.
+    By default a run is what each loop takes: one k-block under 3×TF32
+    (``csrc/gemm_sm90.cuh``), the whole contraction under one pass
+    (``csrc/gemm_sm90_1xtf32.cuh``)."""
     pad = (-A.shape[1]) % 32
     A = torch.nn.functional.pad(A, (0, pad))
     B = torch.nn.functional.pad(B, (0, 0, 0, pad))
     blocks = A.shape[1] // 32
+    if run_blocks is None:
+        run_blocks = 1 if passes == 3 else blocks
     A_hi = _tf32(A)
     B_hi = _tf32(B)
-    A_b = A_hi.reshape(A.shape[0], blocks, 32).transpose(0, 1)
-    B_b = B_hi.reshape(blocks, 32, B.shape[1])
-    runs = torch.bmm(A_b, B_b)
-    if passes == 3:
-        A_lo = _tf32(A - A_hi).reshape(A.shape[0], blocks, 32).transpose(0, 1)
-        B_lo = _tf32(B - B_hi).reshape(blocks, 32, B.shape[1])
-        runs = torch.bmm(A_lo, B_b) + torch.bmm(A_b, B_lo) + runs
+    A_lo = _tf32(A - A_hi)
+    B_lo = _tf32(B - B_hi)
     total = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32)
-    for run in runs:
+    for k0 in range(0, A.shape[1], 32 * run_blocks):
+        ks = slice(k0, k0 + 32 * run_blocks)
+        run = A_hi[:, ks] @ B_hi[ks]
+        if passes == 3:
+            run = A_lo[:, ks] @ B_hi[ks] + A_hi[:, ks] @ B_lo[ks] + run
         total += run
     return total
 
@@ -197,10 +204,10 @@ def test_3xtf32_gram_keeps_the_f32_limit_and_one_pass_breaks_it(passes: int, wit
     assert (err <= GRAM_TOL_F32) == within_limit, err
 
 
-def _sweep_emulated(is_classifier: bool, passes: int, n: int = 2048) -> tuple:
+def _sweep_emulated(is_classifier: bool, passes: int, n: int = 2048, run_blocks: int | None = None) -> tuple:
     """K2's float32 path on seed-86 operands: W, Gu = W·Qs, then num and lev against
-    r_all, each product in ``passes`` TF32 passes. Returns (err, obj) and the float64
-    plain version's (err, obj)."""
+    r_all, each product in ``passes`` TF32 passes (accumulation runs as ``_product``).
+    Returns (err, obj) and the float64 plain version's (err, obj)."""
     ops = _operands(86, classifier=is_classifier, n=n)
     sw = _sweep_operands(ops, n=n)
     t64 = {k: _t(v) for k, v in {**ops, **{k: sw[k] for k in ("Qs", "r_all", "k")}}.items()}
@@ -212,9 +219,9 @@ def _sweep_emulated(is_classifier: bool, passes: int, n: int = 2048) -> tuple:
     cos, sin = _features32(t32)
     ones = torch.ones((n, 1))
     W = torch.cat([cos, ones, sin, 0 * ones], dim=1)
-    Gu = _product(W, t32["Qs"], passes)
-    num = sw["inv_c0"] * _product(Gu * t32["k"][None, :], t32["r_all"], passes)
-    lev = sw["inv_c0"] * t32["s2"][:, None] * _product(Gu * Gu, t32["r_all"], passes)
+    Gu = _product(W, t32["Qs"], passes, run_blocks)
+    num = sw["inv_c0"] * _product(Gu * t32["k"][None, :], t32["r_all"], passes, run_blocks)
+    lev = sw["inv_c0"] * t32["s2"][:, None] * _product(Gu * Gu, t32["r_all"], passes, run_blocks)
     y = t32["y"][:, None]
     e = (num - y) / (1.0 - lev)
     if is_classifier:
@@ -288,12 +295,61 @@ def test_cpu_sweep_is_ieee_under_either_precision(precision: str, monkeypatch) -
 
 
 def test_one_pass_workspace_holds_one_plane() -> None:
-    """Under "fast" the sweep's workspace holds the hi planes only: the same row chunk
-    and a little over half the bytes (the row-tile partials are not planes)."""
+    """Under "fast" the sweep's workspace holds one plane of each matrix: W's TF32 values and
+    Gu in float32 (the one-pass sweep forms Gu∘k and Gu∘Gu from Gu in registers, so neither
+    is stored), Qsᵀ and r_allᵀ padded to the one-pass tiles (6 × 176 = 1056 at D = 512,
+    G = 1024), k, and the row-tile partials: twice the row chunk of "high" (its persistent
+    kernels start and drain once a chunk) in under two thirds of its bytes, whatever n."""
     high, fast = tsweep.sweep_plan(2**20, 512, 1024), tsweep.sweep_plan(2**20, 512, 1024, "fast")
-    assert fast["chunk"] == high["chunk"]
-    assert high["workspace_bytes"] / 2 < fast["workspace_bytes"] < 0.51 * high["workspace_bytes"]
-    assert tsweep.sweep_plan(2**14, 512, 1024, "fast") == fast
+    assert fast["chunk"] == 2 * high["chunk"]
+    assert fast["workspace_bytes"] < high["workspace_bytes"] / 1.5
+    assert tsweep.sweep_plan(2**15, 512, 1024, "fast") == fast
+    chunk, Kp = fast["chunk"], 1056
+    assert fast["workspace_bytes"] == 4 * (2 * chunk * Kp + 1056 * Kp + 1056 * Kp + Kp + 2 * (chunk // 128) * 1056)
+
+
+def _spans(tiles: int, width: int, size: int) -> list[range]:
+    """The indices below ``size`` that each of ``tiles`` tiles of ``width`` covers."""
+    return [range(t * width, min((t + 1) * width, size)) for t in range(tiles)]
+
+
+# The shapes chip_smoke.py runs through the one-pass kernels: its ragged cases and the
+# 1M fit (whose plan alone is checked here).
+@pytest.mark.parametrize(("n", "D", "G"), [(3001, 100, 1001), (20011, 1800, 130), (2**20, 512, 1024)])
+def test_one_pass_plan_covers_every_column_and_gamma_once(n: int, D: int, G: int) -> None:
+    """``csrc/sweep_1xtf32.cu``'s tiles: 176 columns of Gu and 176 values of γ a tile (its
+    blocks share no tiles: no cluster). Every column of 2M and every γ lies in exactly one
+    tile, no tile lies wholly in padding (the γ tail is one partly filled tile), and the
+    workspace is bounded by the chunk (a multiple of the Gu tile's 256 rows), not by n."""
+    plan = tsweep.sweep_plan(n, D, G, "fast")
+    M2 = 2 * D + 2
+    Kp = -(-M2 // 32) * 32
+    assert (plan["tile"], plan["row_tile"]) == (176, 256)
+    for tiles, size in ((plan["col_tiles"], M2), (plan["gamma_tiles"], G)):
+        covered = [i for span in _spans(tiles, plan["tile"], size) for i in span]
+        assert covered == list(range(size))  # each index once, in order
+        assert (tiles - 1) * 176 < size  # the last tile holds at least one index
+    assert (plan["col_tiles"] - 1) * 176 < Kp <= plan["col_tiles"] * 176
+    assert plan["chunk"] % 256 == 0 and plan["chunk"] <= 32768
+    assert min(n, 32768) <= plan["chunk"] < min(n, 32768) + 256
+    Nq = -(-(plan["col_tiles"] * 176) // 32) * 32
+    Gq = plan["gamma_tiles"] * 176
+    Gr = -(-Gq // 32) * 32
+    chunk = plan["chunk"]
+    assert plan["workspace_bytes"] == 4 * (2 * chunk * Kp + Nq * Kp + Gr * Kp + Kp + 2 * (chunk // 128) * Gq)
+    assert tsweep.sweep_plan(64 * n, D, G, "fast") == tsweep.sweep_plan(2**24, D, G, "fast")
+    assert plan["workspace_bytes"] <= tsweep.sweep_plan(2**24, D, G, "fast")["workspace_bytes"]
+
+
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_one_pass_run_length_moves_the_sweep_far_less_than_one_pass(task: str) -> None:
+    """The one-pass loop accumulates a tile's whole contraction in one run; summing
+    one-k-block runs in IEEE instead moves the sweep by less than a tenth of one pass's
+    distance from float64 on the same operands."""
+    is_classifier = task == "classification"
+    whole, _, ref_err, _ = _sweep_emulated(is_classifier, passes=1)
+    blocks, _, _, _ = _sweep_emulated(is_classifier, passes=1, run_blocks=1)
+    assert _max_rel(whole, blocks.double()) <= 0.1 * _max_rel(whole, ref_err)
 
 
 @pytest.mark.parametrize("kernel", ["gram", "sweep"])
@@ -349,8 +405,8 @@ class _Library:
         return entry
 
 
-@pytest.mark.parametrize("precision", ["high", "fast"])
-def test_float64_device_tensors_take_the_dmma_path(precision: str, monkeypatch) -> None:
+def _stand_in_library(monkeypatch) -> _Library:
+    """A stand-in library behind both wrappers, on a machine with no card."""
     lib = _Library()
     for mod in (tgram, tsweep):
         monkeypatch.setattr(mod, "load_library", lambda: lib)
@@ -359,15 +415,23 @@ def test_float64_device_tensors_take_the_dmma_path(precision: str, monkeypatch) 
         monkeypatch.setattr(mod, "path_launches", dict.fromkeys(mod.path_launches, 0))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    return lib
 
-    def meta(*shape: int) -> torch.Tensor:  # not a CPU tensor, and nothing is allocated
-        return torch.empty(shape, dtype=torch.float64, device="meta")
+
+def _meta(*shape: int, dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Not a CPU tensor, and nothing is allocated."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+def test_float64_device_tensors_take_the_dmma_path(precision: str, monkeypatch) -> None:
+    lib = _stand_in_library(monkeypatch)
 
     n, d, D, G = 3001, 5, 4096, 77
     M2 = 2 * D + 2
-    tgram.fused_augmented_gram(meta(n, d), meta(d, D), meta(1, D), meta(n), meta(n))
-    tsweep.fused_loo_sweep(meta(n, d), meta(d, D), meta(1, D), meta(n), meta(n), meta(n), meta(M2, M2),
-                           meta(M2, G), meta(M2), is_classifier=False, inv_c0=1.0, precision=precision)
+    tgram.fused_augmented_gram(_meta(n, d), _meta(d, D), _meta(1, D), _meta(n), _meta(n))
+    tsweep.fused_loo_sweep(_meta(n, d), _meta(d, D), _meta(1, D), _meta(n), _meta(n), _meta(n), _meta(M2, M2),
+                           _meta(M2, G), _meta(M2), is_classifier=False, inv_c0=1.0, precision=precision)
     assert [name for name, _ in lib.calls] == ["neo_gram_f64", "neo_sweep_f64"]
     assert _build.PATH_FP64 == "fp64-dmma"
     assert (tgram.launches, tsweep.launches) == (1, 1)
@@ -376,3 +440,27 @@ def test_float64_device_tensors_take_the_dmma_path(precision: str, monkeypatch) 
     gram_plan = tgram.gram_plan(n, D, torch.float64)
     assert lib.calls[0][1][7:13] == (n, d, D, gram_plan["chunk"], gram_plan["splits"], gram_plan["kb_per_split"])
     assert lib.calls[1][1][12:18] == (n, d, D, G, tsweep.sweep_plan(n, D, G, dtype=torch.float64)["chunk"], 0)
+
+
+def test_fast_float32_device_tensors_take_the_one_pass_entry(monkeypatch) -> None:
+    """Under "fast" a float32 tensor off the CPU reaches neo_sweep_f32 with passes = 1 and
+    the one-pass plan's chunk and workspace, counted under the one-pass path."""
+    lib = _stand_in_library(monkeypatch)
+    captured = {}
+    empty = torch.empty
+
+    def record_empty(*shape, **kwargs):
+        captured["workspace"] = shape
+        return empty(*shape, **kwargs)
+
+    n, d, D, G = 20011, 5, 1800, 130
+    M2 = 2 * D + 2
+    args = [_meta(*shape, dtype=torch.float32) for shape in ((n, d), (d, D), (1, D), (n,), (n,), (n,), (M2, M2), (M2, G), (M2,))]
+    monkeypatch.setattr(torch, "empty", record_empty)
+    tsweep.fused_loo_sweep(*args, is_classifier=True, inv_c0=1.0, precision="fast")
+    monkeypatch.setattr(torch, "empty", empty)
+    plan = tsweep.sweep_plan(n, D, G, "fast")
+    assert [name for name, _ in lib.calls] == ["neo_sweep_f32"]
+    assert lib.calls[0][1][12:19] == (n, d, D, G, plan["chunk"], 1, 1)  # ..., is_classifier, passes
+    assert captured["workspace"] == (plan["workspace_bytes"] // 4,)
+    assert tsweep.path_launches == {_build.PATH_TF32: 0, _build.PATH_TF32_1: 1, _build.PATH_FP64: 0}

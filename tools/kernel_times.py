@@ -8,8 +8,9 @@ also kept in ``chiprun_out/kernel_times.jsonl``:
 
 - ``kernels_f32``: the default ``NeoLSSVM()`` fit of bench's 1,048,576 × 32 float32 rows, and
   the same fit under ``precision="fast"``; K1 and K2 timed on the first fit's tensors and K2's
-  one-pass path on the second's, each beside its plain version and bound
-  (``chip_smoke.gram_timings``, ``chip_smoke.sweep_timings``);
+  one-pass path on the second's, each beside its plain version and bound, the one pass also
+  beside its three products in cuBLAS TF32 and split into its Gu product, sweep product and
+  feature build (``chip_smoke.gram_timings``, ``chip_smoke.sweep_timings``);
 - ``fit_1m_f64``: ``chip_smoke.py``'s phase of that name, the same rows in float64: the fit's
   first and repeat seconds, one K1 and one K2 launch on the float64 path, each kernel held to
   its plain version on the fit's own tensors and timed there (K1 also against
