@@ -83,6 +83,7 @@ from neo_ls_svm_torch.utils.device import (
 )
 from neo_ls_svm_torch.utils.metrics import accuracy_score, r2_score
 from neo_ls_svm_torch.utils.precision import matmul_precision
+from neo_ls_svm_torch.utils.profiling import span
 from neo_ls_svm_torch.utils.transfer import upload_rows
 from neo_ls_svm_torch.utils.validation import (
     _check_n_features,
@@ -311,104 +312,110 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         pre-transform, which such a fit takes wherever it is eligible. The O(n) target and
         weights are pulled once, so the host-side task and label logic is unchanged.
         """
-        device = self._resolve_device()
-        self._check_options()
-        self.mesh_ = self._resolve_mesh(device)
-        if self.mesh_ is not None:
-            device = mesh_device(self.mesh_)  # this rank's own GPU
-        # The one pull of y and the weights, whichever of them are tensors.
-        y, sample_weight = (
-            v.detach().cpu().numpy() if is_tensor(v) else v for v in (y, sample_weight)
-        )
-        X_on_device = is_tensor(X)
-        if X_on_device:
-            X = self._validate_fit_device_X(X, device)
-            x_dtype = numpy_dtype(X.dtype)
-            y = np.ravel(np.asarray(y))
-            check_consistent_length(X, y)
-            # y is on the host here, so check_X_y's finiteness gate costs no device read;
-            # only the O(n·d) scan of X is skipped (a NaN in y would fit an all-NaN model).
-            if np.issubdtype(y.dtype, np.floating) and not np.all(np.isfinite(y)):
-                msg = "Input y contains NaN or infinity."
-                raise ValueError(msg)
-        else:
-            X, y = check_X_y(X, y, dtype=(np.float64, np.float32), ensure_min_samples=2)
-            x_dtype = X.dtype
-            y = np.ravel(np.asarray(y))
-        sample_weight_ = (
-            np.ones(y.shape, x_dtype)
-            if sample_weight is None
-            else np.ravel(np.asarray(sample_weight)).astype(x_dtype)
-        )
-        check_consistent_length(y, sample_weight_)
-        if np.sum(sample_weight_) <= 0:
-            msg = "The sample weights are all zero; at least one weight must be positive."
-            raise ValueError(msg)
-        for name in _FIT_STATE:
-            self.__dict__.pop(name, None)
-        self.n_features_in_ = X.shape[1]
-        self.y_dtype_: npt.DTypeLike = y.dtype
-        self.device_ = device
-        # Infer the task type from the target (two classes → classifier; numeric or
-        # datetime-like → regressor; ref :347-373).
-        unique_y = np.unique(y)
-        inferred: str | None = None
-        if len(unique_y) == 2:
-            inferred = "classifier"
-        elif (
-            np.issubdtype(y.dtype, np.number)
-            or np.issubdtype(y.dtype, np.datetime64)
-            or np.issubdtype(y.dtype, np.timedelta64)
-        ):
-            inferred = "regressor"
-        self._estimator_type: str | None = (
-            inferred if self.estimator_type == "auto" else self.estimator_type
-        )
-        if self._estimator_type == "classifier" and len(unique_y) != 2:
-            if np.issubdtype(y.dtype, np.floating) and np.any(y != np.round(y)):
-                msg = (
-                    "Unknown label type: continuous. Maybe you are trying to fit a "
-                    "classifier, which expects discrete classes on a regression target."
+        with span("neo.fit"):
+            with span("neo.fit.validate"):
+                device = self._resolve_device()
+                self._check_options()
+                self.mesh_ = self._resolve_mesh(device)
+                if self.mesh_ is not None:
+                    device = mesh_device(self.mesh_)  # this rank's own GPU
+                # The one pull of y and the weights, whichever of them are tensors.
+                y, sample_weight = (
+                    v.detach().cpu().numpy() if is_tensor(v) else v for v in (y, sample_weight)
                 )
-                raise ValueError(msg)
-            msg = (
-                "Only binary classification is supported. The type of the target is "
-                f"{'multiclass' if len(unique_y) > 2 else 'constant'}."
-            )
-            raise ValueError(msg)
-        if self._estimator_type == "classifier":
-            self.classes_: npt.NDArray = unique_y
-            y_ = np.ones(y.shape, dtype=x_dtype)
-            y_[y == self.classes_[0]] = -1
-        elif self._estimator_type == "regressor":
-            y_ = y.astype(x_dtype)
-        else:
-            msg = "Target type not supported"
-            raise ValueError(msg)
-        is_classifier = self._estimator_type == "classifier"
-        # Primal vs dual routing (ref :375).
-        self.dual_ = bool(X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual)
-        self.primal_ = not self.dual_
-        if X_on_device and (self.dual_ or self.pre_transform == "host"):
-            # These routes run the host pre-transform (the dual solver's feature map, or
-            # the bit-parity pre-transform the caller asked for), which needs X on the
-            # host: one explicit pull, small for the dual route (n ≤ 1024) and the stated
-            # cost of turning the device route down.
-            X = X.cpu().numpy()
-        if self.dual_:
-            nz = sample_weight_ > 0
-            X, y_, sample_weight_ = X[nz], y_[nz], sample_weight_[nz]
-        fit_route = self._fit_primal if self.primal_ else self._fit_dual
-        result = fit_route(X, y_, sample_weight_, is_classifier=is_classifier, device=device)
-        self._set_fit_attributes({k: v.cpu().numpy() for k, v in result.items()})
-        # The calibrator and the conformal split are made from this at first use.
-        self._calibration_ctx = {
-            "y_": y_,
-            "sample_weight": sample_weight_,
-            "is_classifier": is_classifier,
-            "num_rows": len(y_),
-            "made": {},  # what is made at first use: the fit's __dict__ stays as it is
-        }
+                X_on_device = is_tensor(X)
+                if X_on_device:
+                    X = self._validate_fit_device_X(X, device)
+                    x_dtype = numpy_dtype(X.dtype)
+                    y = np.ravel(np.asarray(y))
+                    check_consistent_length(X, y)
+                    # y is on the host here, so check_X_y's finiteness gate costs no device read;
+                    # only the O(n·d) scan of X is skipped (a NaN in y would fit an all-NaN model).
+                    if np.issubdtype(y.dtype, np.floating) and not np.all(np.isfinite(y)):
+                        msg = "Input y contains NaN or infinity."
+                        raise ValueError(msg)
+                else:
+                    X, y = check_X_y(X, y, dtype=(np.float64, np.float32), ensure_min_samples=2)
+                    x_dtype = X.dtype
+                    y = np.ravel(np.asarray(y))
+                sample_weight_ = (
+                    np.ones(y.shape, x_dtype)
+                    if sample_weight is None
+                    else np.ravel(np.asarray(sample_weight)).astype(x_dtype)
+                )
+                check_consistent_length(y, sample_weight_)
+                if np.sum(sample_weight_) <= 0:
+                    msg = "The sample weights are all zero; at least one weight must be positive."
+                    raise ValueError(msg)
+            with span("neo.fit.target"):
+                for name in _FIT_STATE:
+                    self.__dict__.pop(name, None)
+                self.n_features_in_ = X.shape[1]
+                self.y_dtype_: npt.DTypeLike = y.dtype
+                self.device_ = device
+                # Infer the task type from the target (two classes → classifier; numeric or
+                # datetime-like → regressor; ref :347-373).
+                unique_y = np.unique(y)
+                inferred: str | None = None
+                if len(unique_y) == 2:
+                    inferred = "classifier"
+                elif (
+                    np.issubdtype(y.dtype, np.number)
+                    or np.issubdtype(y.dtype, np.datetime64)
+                    or np.issubdtype(y.dtype, np.timedelta64)
+                ):
+                    inferred = "regressor"
+                self._estimator_type: str | None = (
+                    inferred if self.estimator_type == "auto" else self.estimator_type
+                )
+                if self._estimator_type == "classifier" and len(unique_y) != 2:
+                    if np.issubdtype(y.dtype, np.floating) and np.any(y != np.round(y)):
+                        msg = (
+                            "Unknown label type: continuous. Maybe you are trying to fit a "
+                            "classifier, which expects discrete classes on a regression target."
+                        )
+                        raise ValueError(msg)
+                    msg = (
+                        "Only binary classification is supported. The type of the target is "
+                        f"{'multiclass' if len(unique_y) > 2 else 'constant'}."
+                    )
+                    raise ValueError(msg)
+                if self._estimator_type == "classifier":
+                    self.classes_: npt.NDArray = unique_y
+                    y_ = np.ones(y.shape, dtype=x_dtype)
+                    y_[y == self.classes_[0]] = -1
+                elif self._estimator_type == "regressor":
+                    y_ = y.astype(x_dtype)
+                else:
+                    msg = "Target type not supported"
+                    raise ValueError(msg)
+                is_classifier = self._estimator_type == "classifier"
+            # Primal vs dual routing (ref :375).
+            self.dual_ = bool(X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual)
+            self.primal_ = not self.dual_
+            if X_on_device and (self.dual_ or self.pre_transform == "host"):
+                # These routes run the host pre-transform (the dual solver's feature map, or
+                # the bit-parity pre-transform the caller asked for), which needs X on the
+                # host: one explicit pull, small for the dual route (n ≤ 1024) and the stated
+                # cost of turning the device route down.
+                X = X.cpu().numpy()
+            if self.dual_:
+                nz = sample_weight_ > 0
+                X, y_, sample_weight_ = X[nz], y_[nz], sample_weight_[nz]
+            fit_route = self._fit_primal if self.primal_ else self._fit_dual
+            result = fit_route(X, y_, sample_weight_, is_classifier=is_classifier, device=device)
+            with span("neo.fit.pull", device=device) as pulled:
+                fitted = {k: v.cpu().numpy() for k, v in result.items()}
+                pulled["bytes"] = sum(a.nbytes for a in fitted.values())
+            self._set_fit_attributes(fitted)
+            # The calibrator and the conformal split are made from this at first use.
+            self._calibration_ctx = {
+                "y_": y_,
+                "sample_weight": sample_weight_,
+                "is_classifier": is_classifier,
+                "num_rows": len(y_),
+                "made": {},  # what is made at first use: the fit's __dict__ stays as it is
+            }
         return self
 
     def _fit_primal(
@@ -422,59 +429,76 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
     ) -> dict[str, torch.Tensor]:
         """The primal route (n > 1024): resolve the pre-transform and the solver route,
         then fit on ``device``. X is a host array, or a validated tensor on ``device``."""
-        self.primal_feature_map_ = clone(
-            OrthogonalRandomFourierFeatures()
-            if self.primal_feature_map == "auto"
-            else self.primal_feature_map
-        )
-        fm = self.primal_feature_map_
-        n_rows = X.shape[0]
-        dtype = y_.dtype  # X's dtype, as a NumPy dtype whether X is an array or a tensor
-        num_features = int(getattr(fm, "num_features", 512))
-        working_set_bytes = _primal_working_set_bytes(n_rows, num_features, dtype.itemsize)
-        if self.mesh_ is not None:
-            route = "mesh"
-        else:
-            route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
-        # The device pre-transform applies to a random-Fourier feature map whose
-        # complexity matrix is the shipped identity (a subclass overriding
-        # `complexity_matrix` needs the whitened-GEVD solver, which the host path feeds).
-        device_pt_eligible = (
-            isinstance(fm, RandomFourierFeatures)
-            and type(fm).complexity_matrix is RandomFourierFeatures.complexity_matrix
-        )
-        if is_tensor(X) and not device_pt_eligible:
-            # A custom feature map needs the host pre-transform: one explicit pull is the
-            # only way to honour it.
-            X = X.cpu().numpy()
-        self.pre_transform_, self.transfer_ = routing._resolve_fit_plan(
-            # A tensor X takes the device pre-transform (eligibility was settled above;
-            # the host route would cost the pull this lane avoids).
-            "device" if is_tensor(X) else self.pre_transform,
-            self.transfer,
-            payload_bytes=n_rows * X.shape[1] * dtype.itemsize,
-            device_pt_eligible=device_pt_eligible,
-        )
-        use_device_pt = self.pre_transform_ == "device" and device_pt_eligible
-        # pre_transform_ records the route actually taken: an explicit
-        # pre_transform="device" on an ineligible fit falls to the host path.
-        self.pre_transform_ = "device" if use_device_pt else "host"
-        if self.transfer_ != "float32" and route == "mesh":
-            msg = (
-                f"transfer={self.transfer!r} is not supported on the mesh route: "
-                "sharded fits stage rows at full precision."
+        with span("neo.fit.stage"):
+            self.primal_feature_map_ = clone(
+                OrthogonalRandomFourierFeatures()
+                if self.primal_feature_map == "auto"
+                else self.primal_feature_map
             )
-            raise ValueError(msg)
-        if self.transfer_ != "float32" and not use_device_pt:
-            msg = (
-                f"transfer={self.transfer!r} only applies when the fit takes the "
-                "on-device pre-transform route (primal, random-Fourier feature map "
-                "with the identity complexity matrix); this fit would route "
-                f"through {route!r} with the host pre-transform, silently "
-                "ignoring the narrow upload you opted into."
+            fm = self.primal_feature_map_
+            n_rows = X.shape[0]
+            dtype = y_.dtype  # X's dtype, as a NumPy dtype whether X is an array or a tensor
+            num_features = int(getattr(fm, "num_features", 512))
+            working_set_bytes = _primal_working_set_bytes(n_rows, num_features, dtype.itemsize)
+            if self.mesh_ is not None:
+                route = "mesh"
+            else:
+                route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
+            # The device pre-transform applies to a random-Fourier feature map whose
+            # complexity matrix is the shipped identity (a subclass overriding
+            # `complexity_matrix` needs the whitened-GEVD solver, which the host path feeds).
+            device_pt_eligible = (
+                isinstance(fm, RandomFourierFeatures)
+                and type(fm).complexity_matrix is RandomFourierFeatures.complexity_matrix
             )
-            raise ValueError(msg)
-        self.γs_ = gamma_grid(dtype, num=1024)
+            if is_tensor(X) and not device_pt_eligible:
+                # A custom feature map needs the host pre-transform: one explicit pull is the
+                # only way to honour it.
+                X = X.cpu().numpy()
+            self.pre_transform_, self.transfer_ = routing._resolve_fit_plan(
+                # A tensor X takes the device pre-transform (eligibility was settled above;
+                # the host route would cost the pull this lane avoids).
+                "device" if is_tensor(X) else self.pre_transform,
+                self.transfer,
+                payload_bytes=n_rows * X.shape[1] * dtype.itemsize,
+                device_pt_eligible=device_pt_eligible,
+            )
+            use_device_pt = self.pre_transform_ == "device" and device_pt_eligible
+            # pre_transform_ records the route actually taken: an explicit
+            # pre_transform="device" on an ineligible fit falls to the host path.
+            self.pre_transform_ = "device" if use_device_pt else "host"
+            if self.transfer_ != "float32" and route == "mesh":
+                msg = (
+                    f"transfer={self.transfer!r} is not supported on the mesh route: "
+                    "sharded fits stage rows at full precision."
+                )
+                raise ValueError(msg)
+            if self.transfer_ != "float32" and not use_device_pt:
+                msg = (
+                    f"transfer={self.transfer!r} only applies when the fit takes the "
+                    "on-device pre-transform route (primal, random-Fourier feature map "
+                    "with the identity complexity matrix); this fit would route "
+                    f"through {route!r} with the host pre-transform, silently "
+                    "ignoring the narrow upload you opted into."
+                )
+                raise ValueError(msg)
+            self.γs_ = gamma_grid(dtype, num=1024)
+            if route != "mesh":  # a mesh stages its rows on each rank (_fit_mesh)
+                g_d = _to_device(self.γs_, device)
+                # Streaming: zero-weight padding rows to a chunk multiple, added before the
+                # pre-transform so that their weight excludes them everywhere; num_samples keeps
+                # the true n.
+                row_pad = (-n_rows) % STREAMING_ROW_CHUNK if route == "streaming" else 0
+                y_d = _to_device(np.concatenate([y_, np.zeros(row_pad, dtype)]), device)
+                s_d = _to_device(np.concatenate([sample_weight_, np.zeros(row_pad, dtype)]), device)
+                if is_tensor(X):  # pad on the device: X never visits the host
+                    X_d = torch.cat([X, X.new_zeros((row_pad, X.shape[1]))]) if row_pad else X
+                    X_d = X_d.contiguous()
+                else:
+                    X_p = np.vstack([X, np.zeros((row_pad, X.shape[1]), dtype)]) if row_pad else X
+                    # Zero-weight rows must not shape the int8 grid: an absurd-valued one would
+                    # stretch it and quantise the real data to zero.
+                    grid_rows = X[sample_weight_ > 0] if self.transfer_ == "int8" else None
         if route == "mesh":
             return self._fit_mesh(
                 X,
@@ -485,21 +509,7 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                 use_device_pt=use_device_pt,
                 stream=working_set_bytes / axis_size(self.mesh_, "data") > STREAMING_BYTES_THRESHOLD,
             )
-        g_d = _to_device(self.γs_, device)
-        # Streaming: zero-weight padding rows to a chunk multiple, added before the
-        # pre-transform so that their weight excludes them everywhere; num_samples keeps
-        # the true n.
-        row_pad = (-n_rows) % STREAMING_ROW_CHUNK if route == "streaming" else 0
-        y_d = _to_device(np.concatenate([y_, np.zeros(row_pad, dtype)]), device)
-        s_d = _to_device(np.concatenate([sample_weight_, np.zeros(row_pad, dtype)]), device)
-        if is_tensor(X):  # pad on the device: X never visits the host
-            X_d = torch.cat([X, X.new_zeros((row_pad, X.shape[1]))]) if row_pad else X
-            X_d = X_d.contiguous()
-        else:
-            X_p = np.vstack([X, np.zeros((row_pad, X.shape[1]), dtype)]) if row_pad else X
-            # Zero-weight rows must not shape the int8 grid: an absurd-valued one would
-            # stretch it and quantise the real data to zero.
-            grid_rows = X[sample_weight_ > 0] if self.transfer_ == "int8" else None
+        if not is_tensor(X):
             X_d = upload_rows(X_p, self.transfer_, device, grid_rows=grid_rows)
         C_emb = None
         pt: dict[str, torch.Tensor] = {}

@@ -35,6 +35,7 @@ import torch
 from neo_ls_svm_torch.ops.cuda.gram import fused_augmented_gram, gram_plain, w_basis_from_augmented
 from neo_ls_svm_torch.ops.cuda.sweep import fused_loo_sweep
 from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
+from neo_ls_svm_torch.utils.profiling import span
 
 # Result keys with one entry per input row (everything else is grid- or basis-sized).
 PER_ROW_KEYS = frozenset({"loo_residuals", "loo_yhat", "loo_leverage", "loo_std", "residuals"})
@@ -371,93 +372,98 @@ def primal_fit_streaming(
     (``parallel/mesh.py::sharded_primal_fit_streaming``). ``sweep_precision`` is K2's
     ``precision`` (its one-pass TF32 path under "fast"); passes 1 and 3 stay IEEE.
     """
-    check_sweep_precision(sweep_precision)
-    n_pad = X.shape[0]
-    if n_pad % row_chunk:
-        msg = f"pad rows to a multiple of row_chunk={row_chunk}, got {n_pad} rows"
-        raise ValueError(msg)
-    n = n_pad if num_samples is None else num_samples
-    dtype, device = X.dtype, X.device
-    D = M_map.shape[1]
-    M = D + 1
-    M2 = 2 * M
-    s = sample_weight / row_sum(torch.sum(sample_weight))
-    s2 = s * s
-    sign = _sign_vector(M, dtype, device)
+    with span("neo.solve", device=X.device):
+        check_sweep_precision(sweep_precision)
+        n_pad = X.shape[0]
+        if n_pad % row_chunk:
+            msg = f"pad rows to a multiple of row_chunk={row_chunk}, got {n_pad} rows"
+            raise ValueError(msg)
+        n = n_pad if num_samples is None else num_samples
+        dtype, device = X.dtype, X.device
+        D = M_map.shape[1]
+        M = D + 1
+        M2 = 2 * M
+        s = sample_weight / row_sum(torch.sum(sample_weight))
+        s2 = s * s
+        sign = _sign_vector(M, dtype, device)
 
-    # Pass 1: one augmented Gram holds every second-order statistic at once —
-    # Y = [cos | sin | 1 | y] so YᵀS²Y contains the Gram, the rhs WᵀS²y, and yᵀS²y.
-    if C_emb is None:
-        G_aug = fused_augmented_gram(X, M_map, b_map, s2, y)
-    else:
-        G_aug = gram_plain(X, M_map, b_map, s2, y, chunk_rows=row_chunk)
-    G, b_vec = w_basis_from_augmented(row_sum(G_aug), D)
-    B = embed_from_gram_blocks(G, M)
+        # Pass 1: one augmented Gram holds every second-order statistic at once —
+        # Y = [cos | sin | 1 | y] so YᵀS²Y contains the Gram, the rhs WᵀS²y, and yᵀS²y.
+        with span("neo.solve.k1", device=device):
+            if C_emb is None:
+                G_aug = fused_augmented_gram(X, M_map, b_map, s2, y)
+            else:
+                G_aug = gram_plain(X, M_map, b_map, s2, y, chunk_rows=row_chunk)
+            G, b_vec = w_basis_from_augmented(row_sum(G_aug), D)
+        B = embed_from_gram_blocks(G, M)
 
-    inv_c0 = _inv_c0_scale(n, M, dtype, device)
-    inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
-    lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
-    k = Qs.T @ b_vec
+        inv_c0 = _inv_c0_scale(n, M, dtype, device)
+        inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
+        with span("neo.solve.eigh", device=device):
+            lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
+            k = Qs.T @ b_vec
 
-    # Pass 2: γ-sweep objective reduction over all rows.
-    r_all = (1.0 / (gammas[None, :] + lam[:, None])).contiguous()  # 2M × G
-    loo_errors_gs, objective = row_sum(torch.stack(fused_loo_sweep(
-        X,
-        M_map,
-        b_map,
-        y,
-        s,
-        s2,
-        Qs.contiguous(),
-        r_all,
-        k,
-        is_classifier=is_classifier,
-        inv_c0=float(n) * M if C_emb is None else 1.0,
-        precision=sweep_precision,
-    )))
-    optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
-    gamma_opt = gammas[optimum]
+        # Pass 2: γ-sweep objective reduction over all rows.
+        with span("neo.solve.k2", device=device):
+            r_all = (1.0 / (gammas[None, :] + lam[:, None])).contiguous()  # 2M × G
+            loo_errors_gs, objective = row_sum(torch.stack(fused_loo_sweep(
+                X,
+                M_map,
+                b_map,
+                y,
+                s,
+                s2,
+                Qs.contiguous(),
+                r_all,
+                k,
+                is_classifier=is_classifier,
+                inv_c0=float(n) * M if C_emb is None else 1.0,
+                precision=sweep_precision,
+            )))
+            optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
+            gamma_opt = gammas[optimum]
 
-    # Cholesky re-solve at the optimum (ref :177-178).
-    L = torch.linalg.cholesky(_regularised_gram(B, C_emb, gamma_opt, inv_c0_id))
-    beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
+        # Cholesky re-solve at the optimum (ref :177-178).
+        L = torch.linalg.cholesky(_regularised_gram(B, C_emb, gamma_opt, inv_c0_id))
+        beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
 
-    # Pass 3: per-row LOO statistics and residuals at the optimum.
-    r_opt = 1.0 / (gamma_opt + lam)
-    kr_opt = k * r_opt
-    beta_j = sign * beta_emb
-    e_raw_c, lev_c, sig2_c, resid_c = [], [], [], []
-    for start in range(0, n_pad, row_chunk):
-        rows = slice(start, start + row_chunk)
-        W_b = _features_real_pair(X[rows], M_map, b_map)
-        Gu_b = W_b @ Qs
-        num = inv_c0 * (Gu_b @ kr_opt)
-        sig2 = inv_c0 * ((Gu_b * Gu_b) @ r_opt)
-        lev = s2[rows] * sig2
-        e_raw_c.append((num - y[rows]) / (1.0 - lev))
-        lev_c.append(lev)
-        sig2_c.append(sig2)
-        resid_c.append(W_b @ beta_j - y[rows])
-    e_raw = torch.cat(e_raw_c)
-    lev_opt = torch.cat(lev_c)
-    sigma2 = torch.cat(sig2_c)
-    residuals = _clip_classifier_residuals(torch.cat(resid_c), y, is_classifier)
-    e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
-    loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
-    loo_sigma2 = sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)
+        # Pass 3: per-row LOO statistics and residuals at the optimum.
+        with span("neo.solve.pass3", device=device):
+            r_opt = 1.0 / (gamma_opt + lam)
+            kr_opt = k * r_opt
+            beta_j = sign * beta_emb
+            e_raw_c, lev_c, sig2_c, resid_c = [], [], [], []
+            for start in range(0, n_pad, row_chunk):
+                rows = slice(start, start + row_chunk)
+                W_b = _features_real_pair(X[rows], M_map, b_map)
+                Gu_b = W_b @ Qs
+                num = inv_c0 * (Gu_b @ kr_opt)
+                sig2 = inv_c0 * ((Gu_b * Gu_b) @ r_opt)
+                lev = s2[rows] * sig2
+                e_raw_c.append((num - y[rows]) / (1.0 - lev))
+                lev_c.append(lev)
+                sig2_c.append(sig2)
+                resid_c.append(W_b @ beta_j - y[rows])
+            e_raw = torch.cat(e_raw_c)
+            lev_opt = torch.cat(lev_c)
+            sigma2 = torch.cat(sig2_c)
+            residuals = _clip_classifier_residuals(torch.cat(resid_c), y, is_classifier)
+            e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
+            loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
+            loo_sigma2 = sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)
 
-    return {
-        "beta_emb": beta_emb,
-        "gamma": gamma_opt,
-        "optimum_index": optimum,
-        "lam": lam,
-        "Qs": Qs,
-        "loo_errors_gammas": loo_errors_gs,
-        "loo_residuals": e_clipped,
-        "loo_yhat": y + e_clipped,
-        "loo_leverage": lev_opt,
-        "loo_error": loo_errors_gs[optimum],
-        "loo_score": loo_score,
-        "loo_std": torch.sqrt(loo_sigma2),
-        "residuals": residuals,
-    }
+        return {
+            "beta_emb": beta_emb,
+            "gamma": gamma_opt,
+            "optimum_index": optimum,
+            "lam": lam,
+            "Qs": Qs,
+            "loo_errors_gammas": loo_errors_gs,
+            "loo_residuals": e_clipped,
+            "loo_yhat": y + e_clipped,
+            "loo_leverage": lev_opt,
+            "loo_error": loo_errors_gs[optimum],
+            "loo_score": loo_score,
+            "loo_std": torch.sqrt(loo_sigma2),
+            "residuals": residuals,
+        }

@@ -41,6 +41,7 @@ import torch
 from neo_ls_svm_torch.ops.affine import _identity, _normalizer_stats_device
 from neo_ls_svm_torch.ops.weighted_quantile import weighted_quantile_torch
 from neo_ls_svm_torch.utils.precision import matmul_precision
+from neo_ls_svm_torch.utils.profiling import span
 
 DEVICE_PRETRANSFORM_BINS = 8  # Equal-mass target bins for regression (see module doc).
 
@@ -186,141 +187,143 @@ def device_pre_transform(
     Every product here must run in IEEE arithmetic, and does: the function runs inside
     ``matmul_precision("ieee")`` whatever the caller set.
     """
-    n_held, d = X.shape
-    dtype, dev = X.dtype, X.device
-    tiny = torch.finfo(dtype).tiny
-    if draws is None:
-        shapes = draw_shapes(
-            d,
-            num_bins=num_bins,
-            num_features=num_features,
-            edge_sample_size=edge_sample_size,
-            edge_search_multiplier=edge_search_multiplier,
-            is_classifier=is_classifier,
-            orthogonal=orthogonal,
+    with span("neo.pretransform", device=X.device):
+        n_held, d = X.shape
+        dtype, dev = X.dtype, X.device
+        tiny = torch.finfo(dtype).tiny
+        if draws is None:
+            shapes = draw_shapes(
+                d,
+                num_bins=num_bins,
+                num_features=num_features,
+                edge_sample_size=edge_sample_size,
+                edge_search_multiplier=edge_search_multiplier,
+                is_classifier=is_classifier,
+                orthogonal=orthogonal,
+            )
+            draws = draw_pretransform_inputs(generator, shapes, dtype, dev)
+        draws = {  # a copy of an array: it may be read-only
+            k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)).to(dev, dtype)
+            for k, v in draws.items()
+        }
+
+        with span("neo.pretransform.normalizer", device=X.device):
+            codes, totals = _target_codes(y, w, num_bins=num_bins, is_classifier=is_classifier)
+            valid = totals > 0
+            degenerate = valid.sum() < 2
+
+            held = slice(row_start, row_start + n_held)
+            shift, scale = _normalizer_stats_device(
+                X, w[held], codes[held], totals, num_bins=num_bins, row_sum=row_sum, row_gather=row_gather
+            )
+            shift = torch.where(degenerate, torch.zeros_like(shift), shift)
+            scale = torch.where(degenerate, torch.ones_like(scale), scale)
+            inv_scale = 1.0 / scale
+
+        def take_rows(idx: torch.Tensor) -> torch.Tensor:
+            local = idx - row_start
+            here = (local >= 0) & (local < n_held)
+            return row_sum(torch.where(here[:, None], X[local.clamp(0, n_held - 1)], 0.0))
+
+        ess = draws["bin_sample"].shape[1]
+
+        # Each bin's edge sample, complement sample and bin pool: row indices drawn from y and w
+        # alone, so all of them are taken from X at once (on a mesh, one sum over the ranks).
+        sampled = []
+        for b_idx in range(num_bins):
+            in_bin = (codes == b_idx).to(dtype)
+            in_comp = ((codes != b_idx) & (codes < num_bins)).to(dtype)
+            cum_bin = torch.cumsum(w * in_bin, dim=0)
+            cum_comp = torch.cumsum(w * in_comp, dim=0)
+            for name, cum in (("bin_sample", cum_bin), ("complement", cum_comp), ("bin_pool", cum_bin)):
+                sampled.append(_sample_rows(draws[name][b_idx], cum))
+        rows = (take_rows(torch.cat(sampled)) - shift[None, :]) * inv_scale[None, :]
+        rows = [r.clone() for r in rows.split([len(i) for i in sampled])]
+
+        edges_in = []
+        edges_out = []
+        for b_idx in range(num_bins):
+            bin_sample, comp_sample, bin_pool = rows[3 * b_idx : 3 * b_idx + 3]
+            # Round 1: complement points nearest the bin sample = the complement edge.
+            comp_edge = comp_sample[torch.argmin(_sq_dists(bin_sample, comp_sample), dim=1)]
+            # Round 2: bin points nearest the complement edge = the bin's own edge.
+            bin_edge = bin_pool[torch.argmin(_sq_dists(comp_edge, bin_pool), dim=1)]
+            edges_in.append(bin_edge)
+            edges_out.append(comp_edge)
+        # Leading right singular vectors of each bin's edge differences, via the d×d Grams
+        # (ref _faster_svd, _affine_separator.py:32-51), all bins in one batched eigh. The
+        # data-dependent rank cut is a column mask: dropped directions are zeroed, not
+        # removed, so the block width stays d.
+        Ediff = torch.stack(edges_in) - torch.stack(edges_out)  # (B, ess, d)
+        e, V = torch.linalg.eigh(Ediff.mT @ Ediff)
+        s = torch.sqrt(e.abs()).flip(-1)
+        V = V.flip(-1)
+        keep = ((s > rank_threshold * s[:, :1]) & valid[:, None]).to(dtype)  # (B, d)
+        A_sep = (V * keep[:, None, :]).permute(1, 0, 2).reshape(d, num_bins * d)
+        # Effective column count after the rank cut: the host ORFF draws its χ degrees of
+        # freedom from A.shape[1] AFTER dropped directions are removed (ref
+        # _feature_maps.py:221-222 with A_ from _affine_separator.py:173-176); here they are
+        # zeroed, so the χ df must count only the kept columns.
+        kept_rank = keep.sum()
+
+        # Global rescale λ = √(2·log(f/g)/(f−g)) from mean inter-/intra-bin edge distances
+        # (ref _affine_separator.py:178-209). Empty bins contribute weight 0.
+        num_inter_pairs = ess * (ess + 1) / 2
+        num_intra_pairs = ess * (ess - 1) / 2
+        inter = torch.zeros((), dtype=dtype, device=dev)
+        intra = torch.zeros((), dtype=dtype, device=dev)
+        for b_idx in range(num_bins):
+            proj_in = edges_in[b_idx] @ A_sep
+            proj_out = edges_out[b_idx] @ A_sep
+            inter = inter + totals[b_idx] * torch.tril(_sq_dists(proj_in, proj_out)).sum() / num_inter_pairs
+            intra = intra + totals[b_idx] * torch.tril(_sq_dists(proj_in, proj_in), diagonal=-1).sum() / num_intra_pairs
+        total_mass = totals.sum().clamp_min(tiny)
+        inter = inter / total_mass
+        intra = intra / total_mass
+        gap = inter - intra
+        # As inter → intra the exact expression 2·log(f/g)/(f−g) tends to 2/g.
+        ratio = torch.where(
+            gap.abs() > 1e3 * tiny,
+            2.0 * torch.log(inter.clamp_min(tiny) / intra.clamp_min(tiny)) / gap,
+            2.0 / intra.clamp_min(tiny),
         )
-        draws = draw_pretransform_inputs(generator, shapes, dtype, dev)
-    draws = {  # a copy of an array: it may be read-only
-        k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)).to(dev, dtype)
-        for k, v in draws.items()
-    }
+        lam = torch.where(intra > 0, torch.sqrt(ratio.clamp_min(0.0)), torch.ones_like(ratio))
+        A_sep = A_sep * lam
 
-    codes, totals = _target_codes(y, w, num_bins=num_bins, is_classifier=is_classifier)
-    valid = totals > 0
-    degenerate = valid.sum() < 2
+        # Fewer than two populated bins: the separator is undefined. Degrade to the
+        # unsupervised identity metric (shift 0 / scale 1 set above), mirroring the host
+        # path's 1-bin early exit (ref _affine_separator.py:135-136).
+        width = num_bins * d
+        ident = torch.zeros((d, width), dtype=dtype, device=dev)
+        ident[:, :d] = torch.eye(d, dtype=dtype, device=dev)
+        A_final = torch.where(degenerate, ident, A_sep)
 
-    held = slice(row_start, row_start + n_held)
-    shift, scale = _normalizer_stats_device(
-        X, w[held], codes[held], totals, num_bins=num_bins, row_sum=row_sum, row_gather=row_gather
-    )
-    shift = torch.where(degenerate, torch.zeros_like(shift), shift)
-    scale = torch.where(degenerate, torch.ones_like(scale), scale)
-    inv_scale = 1.0 / scale
+        # Random Fourier draw. ``orthogonal`` (OrthogonalRandomFourierFeatures, the default)
+        # applies blockwise QR orthogonalisation with χ-rescaled column norms (ref
+        # _feature_maps.py:206-223, following Yu et al. 2016); a plain RandomFourierFeatures
+        # map keeps the i.i.d. N(0,1) draw it was configured with (ref :120-127).
+        D = num_features
+        Z = draws["Z"]
+        if orthogonal:
+            Z = torch.cat([torch.linalg.qr(Z[:, j : j + width])[0] for j in range(0, D, width)], dim=1)
+            chi = draws.get("chi")
+            if chi is None:
+                # χ df = the effective column count of A (d on the degenerate fallback),
+                # matching the host draw's A.shape[1]. df is an integer ≤ width, so a masked
+                # sum of squared normals is exact and needs no host read of df.
+                chi_df = torch.where(degenerate, torch.full_like(kept_rank, float(d)), kept_rank).clamp_min(1.0)
+                normals = draws["chi_normals"]
+                counted = torch.arange(width, dtype=dtype, device=dev)[:, None] < chi_df
+                chi = (normals * normals * counted).sum(dim=0, keepdim=True)
+            Z = Z * torch.sqrt(chi)
 
-    def take_rows(idx: torch.Tensor) -> torch.Tensor:
-        local = idx - row_start
-        here = (local >= 0) & (local < n_held)
-        return row_sum(torch.where(here[:, None], X[local.clamp(0, n_held - 1)], 0.0))
-
-    ess = draws["bin_sample"].shape[1]
-
-    # Each bin's edge sample, complement sample and bin pool: row indices drawn from y and w
-    # alone, so all of them are taken from X at once (on a mesh, one sum over the ranks).
-    sampled = []
-    for b_idx in range(num_bins):
-        in_bin = (codes == b_idx).to(dtype)
-        in_comp = ((codes != b_idx) & (codes < num_bins)).to(dtype)
-        cum_bin = torch.cumsum(w * in_bin, dim=0)
-        cum_comp = torch.cumsum(w * in_comp, dim=0)
-        for name, cum in (("bin_sample", cum_bin), ("complement", cum_comp), ("bin_pool", cum_bin)):
-            sampled.append(_sample_rows(draws[name][b_idx], cum))
-    rows = (take_rows(torch.cat(sampled)) - shift[None, :]) * inv_scale[None, :]
-    rows = [r.clone() for r in rows.split([len(i) for i in sampled])]
-
-    edges_in = []
-    edges_out = []
-    for b_idx in range(num_bins):
-        bin_sample, comp_sample, bin_pool = rows[3 * b_idx : 3 * b_idx + 3]
-        # Round 1: complement points nearest the bin sample = the complement edge.
-        comp_edge = comp_sample[torch.argmin(_sq_dists(bin_sample, comp_sample), dim=1)]
-        # Round 2: bin points nearest the complement edge = the bin's own edge.
-        bin_edge = bin_pool[torch.argmin(_sq_dists(comp_edge, bin_pool), dim=1)]
-        edges_in.append(bin_edge)
-        edges_out.append(comp_edge)
-    # Leading right singular vectors of each bin's edge differences, via the d×d Grams
-    # (ref _faster_svd, _affine_separator.py:32-51), all bins in one batched eigh. The
-    # data-dependent rank cut is a column mask: dropped directions are zeroed, not
-    # removed, so the block width stays d.
-    Ediff = torch.stack(edges_in) - torch.stack(edges_out)  # (B, ess, d)
-    e, V = torch.linalg.eigh(Ediff.mT @ Ediff)
-    s = torch.sqrt(e.abs()).flip(-1)
-    V = V.flip(-1)
-    keep = ((s > rank_threshold * s[:, :1]) & valid[:, None]).to(dtype)  # (B, d)
-    A_sep = (V * keep[:, None, :]).permute(1, 0, 2).reshape(d, num_bins * d)
-    # Effective column count after the rank cut: the host ORFF draws its χ degrees of
-    # freedom from A.shape[1] AFTER dropped directions are removed (ref
-    # _feature_maps.py:221-222 with A_ from _affine_separator.py:173-176); here they are
-    # zeroed, so the χ df must count only the kept columns.
-    kept_rank = keep.sum()
-
-    # Global rescale λ = √(2·log(f/g)/(f−g)) from mean inter-/intra-bin edge distances
-    # (ref _affine_separator.py:178-209). Empty bins contribute weight 0.
-    num_inter_pairs = ess * (ess + 1) / 2
-    num_intra_pairs = ess * (ess - 1) / 2
-    inter = torch.zeros((), dtype=dtype, device=dev)
-    intra = torch.zeros((), dtype=dtype, device=dev)
-    for b_idx in range(num_bins):
-        proj_in = edges_in[b_idx] @ A_sep
-        proj_out = edges_out[b_idx] @ A_sep
-        inter = inter + totals[b_idx] * torch.tril(_sq_dists(proj_in, proj_out)).sum() / num_inter_pairs
-        intra = intra + totals[b_idx] * torch.tril(_sq_dists(proj_in, proj_in), diagonal=-1).sum() / num_intra_pairs
-    total_mass = totals.sum().clamp_min(tiny)
-    inter = inter / total_mass
-    intra = intra / total_mass
-    gap = inter - intra
-    # As inter → intra the exact expression 2·log(f/g)/(f−g) tends to 2/g.
-    ratio = torch.where(
-        gap.abs() > 1e3 * tiny,
-        2.0 * torch.log(inter.clamp_min(tiny) / intra.clamp_min(tiny)) / gap,
-        2.0 / intra.clamp_min(tiny),
-    )
-    lam = torch.where(intra > 0, torch.sqrt(ratio.clamp_min(0.0)), torch.ones_like(ratio))
-    A_sep = A_sep * lam
-
-    # Fewer than two populated bins: the separator is undefined. Degrade to the
-    # unsupervised identity metric (shift 0 / scale 1 set above), mirroring the host
-    # path's 1-bin early exit (ref _affine_separator.py:135-136).
-    width = num_bins * d
-    ident = torch.zeros((d, width), dtype=dtype, device=dev)
-    ident[:, :d] = torch.eye(d, dtype=dtype, device=dev)
-    A_final = torch.where(degenerate, ident, A_sep)
-
-    # Random Fourier draw. ``orthogonal`` (OrthogonalRandomFourierFeatures, the default)
-    # applies blockwise QR orthogonalisation with χ-rescaled column norms (ref
-    # _feature_maps.py:206-223, following Yu et al. 2016); a plain RandomFourierFeatures
-    # map keeps the i.i.d. N(0,1) draw it was configured with (ref :120-127).
-    D = num_features
-    Z = draws["Z"]
-    if orthogonal:
-        Z = torch.cat([torch.linalg.qr(Z[:, j : j + width])[0] for j in range(0, D, width)], dim=1)
-        chi = draws.get("chi")
-        if chi is None:
-            # χ df = the effective column count of A (d on the degenerate fallback),
-            # matching the host draw's A.shape[1]. df is an integer ≤ width, so a masked
-            # sum of squared normals is exact and needs no host read of df.
-            chi_df = torch.where(degenerate, torch.full_like(kept_rank, float(d)), kept_rank).clamp_min(1.0)
-            normals = draws["chi_normals"]
-            counted = torch.arange(width, dtype=dtype, device=dev)[:, None] < chi_df
-            chi = (normals * normals * counted).sum(dim=0, keepdim=True)
-        Z = Z * torch.sqrt(chi)
-
-    folded = A_final @ Z  # (d, D)
-    return {
-        "M": folded * inv_scale[:, None],
-        "b": -(shift * inv_scale)[None, :] @ folded,
-        "pt_shift": shift[None, :],
-        "pt_scale": scale[None, :],
-        "pt_A": A_final,
-        "pt_Z": Z,
-        "pt_folded": folded,
-    }
+        folded = A_final @ Z  # (d, D)
+        return {
+            "M": folded * inv_scale[:, None],
+            "b": -(shift * inv_scale)[None, :] @ folded,
+            "pt_shift": shift[None, :],
+            "pt_scale": scale[None, :],
+            "pt_A": A_final,
+            "pt_Z": Z,
+            "pt_folded": folded,
+        }

@@ -12,6 +12,8 @@ import numpy as np
 import numpy.typing as npt
 import torch
 
+from neo_ls_svm_torch.utils.profiling import span
+
 
 def symmetric_int8_grid(
     rows: npt.NDArray,
@@ -50,15 +52,21 @@ def upload_rows(
     ``"float32"`` uploads X as it is (whatever its dtype). ``"bfloat16"`` rounds the
     features to an 8-bit mantissa on the host. ``"int8"`` quantises them on the
     per-column grid of ``grid_rows`` (X itself when None) and multiplies by the grid's
-    scale on the device.
+    scale on the device. The upload is the span ``neo.upload``, whose ``bytes`` attribute
+    counts what crosses to the device (``utils/profiling.py``).
     """
-    X = np.ascontiguousarray(X)
-    dtype = torch.from_numpy(np.empty(0, X.dtype)).dtype
-    if transfer == "bfloat16":
-        return torch.from_numpy(X).to(torch.bfloat16).to(device).to(dtype)
-    if transfer == "int8":
-        scale, cast_fn = symmetric_int8_grid(X if grid_rows is None else grid_rows)
-        return torch.from_numpy(cast_fn(X)).to(device).to(dtype) * torch.from_numpy(scale).to(device)[None, :]
-    if not X.flags.writeable:
-        X = X.copy()  # torch warns on wrapping a non-writable buffer
-    return torch.from_numpy(X).to(device)
+    with span("neo.upload", device=device) as crossed:
+        X = np.ascontiguousarray(X)
+        dtype = torch.from_numpy(np.empty(0, X.dtype)).dtype
+        if transfer == "bfloat16":
+            crossed["bytes"] = X.size * 2
+            return torch.from_numpy(X).to(torch.bfloat16).to(device).to(dtype)
+        if transfer == "int8":
+            scale, cast_fn = symmetric_int8_grid(X if grid_rows is None else grid_rows)
+            X_q = cast_fn(X)
+            crossed["bytes"] = X_q.nbytes + scale.nbytes
+            return torch.from_numpy(X_q).to(device).to(dtype) * torch.from_numpy(scale).to(device)[None, :]
+        if not X.flags.writeable:
+            X = X.copy()  # torch warns on wrapping a non-writable buffer
+        crossed["bytes"] = X.nbytes
+        return torch.from_numpy(X).to(device)
