@@ -68,7 +68,11 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
    and its host-route twin. ``transfer``: the same fit with ``transfer="bfloat16"`` and
    ``"int8"``, LOO R² within 0.03 of the float32 fit.
 8. ``fit_dual``: n = 1024, d = 32, float64, a regressor and a classifier on the card
-   against ``device="cpu"``: γ equal, α̂ and ``predict`` at rtol 1e-8.
+   against ``device="cpu"``: γ equal, α̂ and ``predict`` at rtol 1e-8. ``nan_on_card``: a
+   NumPy X with NaN, +inf or −inf at its first or last value, float32 and float64, streaming
+   and in memory, raises sklearn's ``ValueError`` from the card's check after the upload,
+   and from the host's scan under ``transfer="bfloat16"`` and ``"int8"``, and leaves the
+   estimator unfitted.
 
 9. ``native``: the host loops' C++ library (``neo_ls_svm_torch/native``) built with the system
    compiler; ``pav_fit`` on 1,048,576 points and the quantizer's knot scan on the 1M fit's
@@ -166,6 +170,7 @@ from neo_ls_svm_torch.ops.pretransform_device import (
 )
 from neo_ls_svm_torch.ops.quantizer import hist_quantized_ecdf, sample_bins_quantized_ecdf
 from neo_ls_svm_torch.utils.metrics import r2_score
+from neo_ls_svm_torch.utils import profiling
 from neo_ls_svm_torch.utils.precision import matmul_precision
 from neo_ls_svm_torch.utils.transfer import upload_rows
 
@@ -1224,6 +1229,57 @@ def phase_fit_dual(dev: torch.device) -> None:
     emit({"phase": "fit_dual", "n": 1024, "d": D_IN, "dtype": "float64", "predict_rows": 4096, **records})
 
 
+# The NaN/inf cases on the card: dtype, rows, the route their default fit plans, and the
+# transfer. The float32 ones cross whole and the card scans them; the narrow transfers are
+# cast on the host, so the host scans them first.
+NAN_CASES = (
+    (np.float32, 1 << 20, "streaming", "float32"),
+    (np.float32, 262_144, "inmemory", "float32"),
+    (np.float64, 300_000, "streaming", "float32"),
+    (np.float64, 200_000, "inmemory", "float32"),
+    (np.float32, 262_144, "inmemory", "bfloat16"),
+    (np.float32, 262_144, "inmemory", "int8"),
+)
+
+
+def phase_nan_on_card(dev: torch.device) -> None:
+    """A NumPy X holding NaN, +inf or −inf at its first and its last value, on each case of
+    ``NAN_CASES``: the fit raises sklearn's ``ValueError`` and leaves no fitted state. The
+    spans say who found it: on a card-lane fit the host scanned no byte and the rows were
+    uploaded first; on a host lane the fit ended in validation."""
+    records = []
+    for dtype, n, route, transfer in NAN_CASES:
+        streams = est._primal_working_set_bytes(n, D_FEAT, np.dtype(dtype).itemsize) > est.STREAMING_BYTES_THRESHOLD
+        check(streams == (route == "streaming"), f"nan_on_card: {n} {np.dtype(dtype).name} rows would not take {route}")
+        X, y = make_dataset(n, D_IN, seed=0, dtype=dtype)
+        on_card = transfer == "float32"
+        for where in ((0, 0), (n - 1, D_IN - 1)):
+            for value in (np.nan, np.inf, -np.inf):
+                keep = X[where]
+                X[where] = value
+                model = NeoLSSVM(device=dev, transfer=transfer)
+                profiling.clear_spans()
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                    try:
+                        model.fit(X, y)
+                    except ValueError as e:
+                        check(str(e) == "Input contains NaN or infinity.", f"nan_on_card: {e}")
+                    else:
+                        check(False, f"nan_on_card: {value} at {where} of {n} {transfer} rows was not caught")
+                X[where] = keep
+                check(not [k for k in vars(model) if k.endswith("_")], f"nan_on_card: fitted state {vars(model).keys()}")
+                found = {r["name"]: r["attrs"] for r in profiling.spans()}
+                if on_card:
+                    check(found["neo.fit.validate"]["host_scanned_bytes"] == 0 and "neo.upload" in found,
+                          f"nan_on_card: {transfer} raised after {found}")
+                else:  # a span that raises leaves no record: the fit ended in validation
+                    check(not found, f"nan_on_card: {transfer} raised after {found}")
+        records.append({"dtype": np.dtype(dtype).name, "n": n, "route": route, "transfer": transfer,
+                        "checked_on": "card" if on_card else "host"})
+    profiling.clear_spans()
+    emit({"phase": "nan_on_card", "cases": records, "ok": True})
+
+
 def reset_launches() -> None:
     """Set every kernel's launch counts to 0."""
     for mod in (gram_mod, sweep_mod):
@@ -1884,6 +1940,7 @@ def main() -> int:
     gram64_record, sweep64_record = phase_fit_1m_f64(dev)
     phase_fit_262k(dev)
     phase_fit_dual(dev)
+    phase_nan_on_card(dev)
     X, y = make_dataset(1 << 20, D_IN, seed=0)
     X_test, y_test = make_dataset(65_536, D_IN, seed=1)
     phase_native(y)

@@ -35,7 +35,7 @@ parameter names in the loading process (``"cuda"``: the current device), resolve
 use, never on the index it was fitted on and never on the CPU by itself.
 """
 
-from typing import TYPE_CHECKING, Any, Literal
+from typing import TYPE_CHECKING, Any, Literal, NamedTuple
 
 import numpy as np
 import numpy.typing as npt
@@ -76,6 +76,7 @@ from neo_ls_svm_torch.utils.base import BaseEstimator, clone, sklearn_tags
 from neo_ls_svm_torch.utils.device import (
     is_tensor,
     numpy_dtype,
+    padded,
     require_device,
     resolve_device,
     to_device as _to_device,
@@ -87,6 +88,7 @@ from neo_ls_svm_torch.utils.profiling import span
 from neo_ls_svm_torch.utils.transfer import upload_rows
 from neo_ls_svm_torch.utils.validation import (
     _check_n_features,
+    assert_all_finite,
     check_array,
     check_consistent_length,
     check_is_fitted,
@@ -147,6 +149,24 @@ def _primal_working_set_bytes(n_rows: int, num_features: int, itemsize: int) -> 
     """Primal-solver working-set estimate: ~3 transient copies of the n×2M real
     embedding of φ. The fit's route decision thresholds on it."""
     return 3 * n_rows * 2 * (num_features + 1) * itemsize
+
+
+class _PrimalPlan(NamedTuple):
+    """How a primal fit runs, resolved once while the fit is validated, from what it can
+    observe: X's shape, type and dtype, the mesh and the options. The host's NaN/inf scan
+    of X and the stage both follow it."""
+
+    feature_map: KernelApproximatingFeatureMap  # an unfitted clone of the configured map
+    num_features: int
+    working_set_bytes: int
+    route: str  # "mesh", "streaming" or "inmemory"
+    row_pad: int  # zero-weight rows a streaming fit adds, to a chunk multiple
+    keeps_tensor: bool  # a tensor X stays on the device; any other X is a host array
+    use_device_pt: bool
+    transfer: str
+    # The device, not the host, checks X for NaN and inf: a NumPy X whose rows go whole to
+    # one device for the device pre-transform at full width.
+    finite_on_device: bool
 
 
 def _complexity_embedding(
@@ -311,9 +331,74 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         metadata only and never copied to the host on the primal route with the device
         pre-transform, which such a fit takes wherever it is eligible. The O(n) target and
         weights are pulled once, so the host-side task and label logic is unchanged.
+
+        A NumPy X whose rows go whole to one device for the device pre-transform at full
+        width crosses as the caller holds it: the device pads it and checks it for NaN and
+        inf in one exact reduction (``neo.fit.finite``), and the host makes no pass over it.
+        Every other route scans X on the host first. A fit that raises leaves the estimator
+        as it found it.
         """
+        unfitted = dict(self.__dict__)
+        try:
+            return self._fit(X, y, sample_weight)
+        except BaseException:
+            self.__dict__.clear()
+            self.__dict__.update(unfitted)
+            raise
+
+    def _plan_primal(self, X: "npt.NDArray | torch.Tensor", itemsize: int) -> _PrimalPlan:
+        """Resolve the primal route's plan for X (a validated host array or tensor)."""
+        fm = clone(
+            OrthogonalRandomFourierFeatures() if self.primal_feature_map == "auto" else self.primal_feature_map
+        )
+        n_rows, n_cols = X.shape
+        num_features = int(getattr(fm, "num_features", 512))
+        working_set_bytes = _primal_working_set_bytes(n_rows, num_features, itemsize)
+        if self.mesh_ is not None:
+            route = "mesh"
+        else:
+            route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
+        # The device pre-transform applies to a random-Fourier feature map whose
+        # complexity matrix is the shipped identity (a subclass overriding
+        # `complexity_matrix` needs the whitened-GEVD solver, which the host path feeds).
+        eligible = (
+            isinstance(fm, RandomFourierFeatures)
+            and type(fm).complexity_matrix is RandomFourierFeatures.complexity_matrix
+        )
+        # A tensor X takes the device pre-transform wherever it is eligible and the caller
+        # did not ask for the host's (which would cost the pull this lane avoids).
+        keeps_tensor = is_tensor(X) and eligible and self.pre_transform != "host"
+        pre_transform, transfer = routing._resolve_fit_plan(
+            "device" if keeps_tensor else self.pre_transform,
+            self.transfer,
+            payload_bytes=n_rows * n_cols * itemsize,
+            device_pt_eligible=eligible,
+        )
+        use_device_pt = pre_transform == "device" and eligible
+        return _PrimalPlan(
+            feature_map=fm,
+            num_features=num_features,
+            working_set_bytes=working_set_bytes,
+            route=route,
+            row_pad=(-n_rows) % STREAMING_ROW_CHUNK if route == "streaming" else 0,
+            keeps_tensor=keeps_tensor,
+            use_device_pt=use_device_pt,
+            transfer=transfer,
+            # Every other route reads X on the host (the dual route's and the host
+            # pre-transform's feature maps, a mesh's per-rank staging) or casts it there
+            # (transfer="bfloat16" or "int8" can turn a finite value into inf, or a NaN into
+            # an integer), so the host scans X first.
+            finite_on_device=not is_tensor(X) and route != "mesh" and use_device_pt and transfer == "float32",
+        )
+
+    def _fit(
+        self,
+        X: "npt.NDArray | torch.Tensor | pd.DataFrame",
+        y: "npt.NDArray | torch.Tensor | pd.Series",
+        sample_weight: "npt.NDArray | torch.Tensor | pd.Series | None",
+    ) -> "NeoLSSVM":
         with span("neo.fit"):
-            with span("neo.fit.validate"):
+            with span("neo.fit.validate") as checked:
                 device = self._resolve_device()
                 self._check_options()
                 self.mesh_ = self._resolve_mesh(device)
@@ -335,9 +420,17 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                         msg = "Input y contains NaN or infinity."
                         raise ValueError(msg)
                 else:
-                    X, y = check_X_y(X, y, dtype=(np.float64, np.float32), ensure_min_samples=2)
+                    X, y = check_X_y(
+                        X, y, dtype=(np.float64, np.float32), ensure_min_samples=2, ensure_all_finite=False
+                    )
                     x_dtype = X.dtype
                     y = np.ravel(np.asarray(y))
+                dual = bool(X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual)
+                plan = None if dual else self._plan_primal(X, np.dtype(x_dtype).itemsize)
+                host_scan = not X_on_device and not (plan is not None and plan.finite_on_device)
+                if host_scan:
+                    assert_all_finite(X)
+                checked["host_scanned_bytes"] = X.nbytes if host_scan else 0
                 sample_weight_ = (
                     np.ones(y.shape, x_dtype)
                     if sample_weight is None
@@ -391,19 +484,20 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                     raise ValueError(msg)
                 is_classifier = self._estimator_type == "classifier"
             # Primal vs dual routing (ref :375).
-            self.dual_ = bool(X.shape[0] <= DUAL_THRESHOLD if self.dual == "auto" else self.dual)
+            self.dual_ = dual
             self.primal_ = not self.dual_
-            if X_on_device and (self.dual_ or self.pre_transform == "host"):
-                # These routes run the host pre-transform (the dual solver's feature map, or
-                # the bit-parity pre-transform the caller asked for), which needs X on the
-                # host: one explicit pull, small for the dual route (n ≤ 1024) and the stated
-                # cost of turning the device route down.
+            if X_on_device and (plan is None or not plan.keeps_tensor):
+                # These routes run the host pre-transform (the dual solver's feature map, the
+                # bit-parity pre-transform the caller asked for, or a custom feature map's),
+                # which needs X on the host: one explicit pull, small for the dual route
+                # (n ≤ 1024) and the stated cost of turning the device route down.
                 X = X.cpu().numpy()
             if self.dual_:
                 nz = sample_weight_ > 0
                 X, y_, sample_weight_ = X[nz], y_[nz], sample_weight_[nz]
-            fit_route = self._fit_primal if self.primal_ else self._fit_dual
-            result = fit_route(X, y_, sample_weight_, is_classifier=is_classifier, device=device)
+                result = self._fit_dual(X, y_, sample_weight_, is_classifier=is_classifier, device=device)
+            else:
+                result = self._fit_primal(X, y_, sample_weight_, plan, is_classifier=is_classifier, device=device)
             with span("neo.fit.pull", device=device) as pulled:
                 fitted = {k: v.cpu().numpy() for k, v in result.items()}
                 pulled["bytes"] = sum(a.nbytes for a in fitted.values())
@@ -423,50 +517,26 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         X: "npt.NDArray | torch.Tensor",
         y_: npt.NDArray,
         sample_weight_: npt.NDArray,
+        plan: _PrimalPlan,
         *,
         is_classifier: bool,
         device: torch.device,
     ) -> dict[str, torch.Tensor]:
-        """The primal route (n > 1024): resolve the pre-transform and the solver route,
-        then fit on ``device``. X is a host array, or a validated tensor on ``device``."""
+        """The primal route (n > 1024): fit on ``device`` as ``plan`` says. X is a host
+        array, or a validated tensor on ``device`` where ``plan.keeps_tensor``. Where
+        ``plan.finite_on_device``, the host did not scan X for NaN and inf: the device
+        checks it right after the upload."""
         with span("neo.fit.stage"):
-            self.primal_feature_map_ = clone(
-                OrthogonalRandomFourierFeatures()
-                if self.primal_feature_map == "auto"
-                else self.primal_feature_map
-            )
-            fm = self.primal_feature_map_
+            self.primal_feature_map_ = fm = plan.feature_map
             n_rows = X.shape[0]
             dtype = y_.dtype  # X's dtype, as a NumPy dtype whether X is an array or a tensor
-            num_features = int(getattr(fm, "num_features", 512))
-            working_set_bytes = _primal_working_set_bytes(n_rows, num_features, dtype.itemsize)
-            if self.mesh_ is not None:
-                route = "mesh"
-            else:
-                route = "streaming" if working_set_bytes > STREAMING_BYTES_THRESHOLD else "inmemory"
-            # The device pre-transform applies to a random-Fourier feature map whose
-            # complexity matrix is the shipped identity (a subclass overriding
-            # `complexity_matrix` needs the whitened-GEVD solver, which the host path feeds).
-            device_pt_eligible = (
-                isinstance(fm, RandomFourierFeatures)
-                and type(fm).complexity_matrix is RandomFourierFeatures.complexity_matrix
-            )
-            if is_tensor(X) and not device_pt_eligible:
-                # A custom feature map needs the host pre-transform: one explicit pull is the
-                # only way to honour it.
-                X = X.cpu().numpy()
-            self.pre_transform_, self.transfer_ = routing._resolve_fit_plan(
-                # A tensor X takes the device pre-transform (eligibility was settled above;
-                # the host route would cost the pull this lane avoids).
-                "device" if is_tensor(X) else self.pre_transform,
-                self.transfer,
-                payload_bytes=n_rows * X.shape[1] * dtype.itemsize,
-                device_pt_eligible=device_pt_eligible,
-            )
-            use_device_pt = self.pre_transform_ == "device" and device_pt_eligible
+            num_features = plan.num_features
+            route = plan.route
+            use_device_pt = plan.use_device_pt
             # pre_transform_ records the route actually taken: an explicit
             # pre_transform="device" on an ineligible fit falls to the host path.
             self.pre_transform_ = "device" if use_device_pt else "host"
+            self.transfer_ = plan.transfer
             if self.transfer_ != "float32" and route == "mesh":
                 msg = (
                     f"transfer={self.transfer!r} is not supported on the mesh route: "
@@ -487,15 +557,14 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                 g_d = _to_device(self.γs_, device)
                 # Streaming: zero-weight padding rows to a chunk multiple, added before the
                 # pre-transform so that their weight excludes them everywhere; num_samples keeps
-                # the true n.
-                row_pad = (-n_rows) % STREAMING_ROW_CHUNK if route == "streaming" else 0
-                y_d = _to_device(np.concatenate([y_, np.zeros(row_pad, dtype)]), device)
-                s_d = _to_device(np.concatenate([sample_weight_, np.zeros(row_pad, dtype)]), device)
-                if is_tensor(X):  # pad on the device: X never visits the host
-                    X_d = torch.cat([X, X.new_zeros((row_pad, X.shape[1]))]) if row_pad else X
-                    X_d = X_d.contiguous()
+                # the true n. They are written on the device (here and in upload_rows): the
+                # host makes no padded copy.
+                row_pad = plan.row_pad
+                y_d = _to_device(y_, device, pad=row_pad)
+                s_d = _to_device(sample_weight_, device, pad=row_pad)
+                if is_tensor(X):  # X never visits the host
+                    X_d = padded(X, row_pad, device).contiguous()
                 else:
-                    X_p = np.vstack([X, np.zeros((row_pad, X.shape[1]), dtype)]) if row_pad else X
                     # Zero-weight rows must not shape the int8 grid: an absurd-valued one would
                     # stretch it and quantise the real data to zero.
                     grid_rows = X[sample_weight_ > 0] if self.transfer_ == "int8" else None
@@ -507,10 +576,19 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                 is_classifier=is_classifier,
                 device=device,
                 use_device_pt=use_device_pt,
-                stream=working_set_bytes / axis_size(self.mesh_, "data") > STREAMING_BYTES_THRESHOLD,
+                stream=plan.working_set_bytes / axis_size(self.mesh_, "data") > STREAMING_BYTES_THRESHOLD,
             )
         if not is_tensor(X):
-            X_d = upload_rows(X_p, self.transfer_, device, grid_rows=grid_rows)
+            X_d = upload_rows(X, self.transfer_, device, grid_rows=grid_rows, pad_rows=row_pad)
+        if plan.finite_on_device:  # the host's scan, as one exact reduction on the device
+            with span("neo.fit.finite", device=device) as scanned:
+                rows = X_d[:n_rows]
+                scanned["bytes"] = rows.numel() * rows.element_size()
+                # Min and max carry any NaN, and an infinity is an extreme: both are finite
+                # exactly when every value is, and no n × d temporary is made.
+                if not bool(torch.isfinite(torch.stack(torch.aminmax(rows))).all()):
+                    msg = "Input contains NaN or infinity."
+                    raise ValueError(msg)
         C_emb = None
         pt: dict[str, torch.Tensor] = {}
         if use_device_pt:

@@ -64,7 +64,7 @@ from neo_ls_svm_torch.ops.pretransform_device import (
     draw_shapes,
 )
 from neo_ls_svm_torch.parallel import collectives
-from neo_ls_svm_torch.utils.device import require_device, to_device
+from neo_ls_svm_torch.utils.device import padded, require_device, to_device
 from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 
 AXES = ("data", "feature")
@@ -152,13 +152,9 @@ def _stage_rows(mesh: DeviceMesh, arr: Operand, mult: int, device: torch.device)
     if isinstance(arr, torch.Tensor):
         require_device(arr, device, "X")
         block = arr[lo:hi]
-        if block.shape[0] < per:
-            block = torch.cat([block, block.new_zeros((per - block.shape[0], *block.shape[1:]))])
-        return block.contiguous()
+        return padded(block, per - block.shape[0], device).contiguous()
     block = np.asarray(arr[lo:hi])
-    if block.shape[0] < per:
-        block = np.concatenate([block, np.zeros((per - block.shape[0], *block.shape[1:]), block.dtype)])
-    return to_device(block, device)
+    return to_device(block, device, pad=per - block.shape[0])
 
 
 def _stage_replicated(arr: Operand | None, device: torch.device) -> torch.Tensor | None:
@@ -175,9 +171,8 @@ def _stage_padded(arr: Operand, mult: int, device: torch.device) -> torch.Tensor
     pad = (-arr.shape[0]) % mult
     if isinstance(arr, torch.Tensor):
         require_device(arr, device, "operand")
-        return torch.cat([arr, arr.new_zeros((pad, *arr.shape[1:]))]) if pad else arr
-    arr = np.asarray(arr)
-    return to_device(np.concatenate([arr, np.zeros((pad, *arr.shape[1:]), arr.dtype)]) if pad else arr, device)
+        return padded(arr, pad, device)
+    return to_device(np.asarray(arr), device, pad=pad)
 
 
 def _whole_rows(result: dict[str, torch.Tensor], data: Any, n: int) -> dict[str, torch.Tensor]:

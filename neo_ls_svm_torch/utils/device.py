@@ -56,13 +56,28 @@ def require_device(tensor: torch.Tensor, device: torch.device, what: str) -> Non
         raise ValueError(msg)
 
 
-def to_device(a: npt.ArrayLike, device: torch.device, dtype: Any = None) -> torch.Tensor:
+def padded(a: torch.Tensor, pad: int, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``a`` on ``device`` at ``dtype`` (``a``'s own when None), followed by ``pad`` zero
+    rows written there. The rows cross at ``a``'s width and widen on ``device``, into one
+    buffer: no padded copy of ``a`` is made on the host or beside it on the device. With
+    no pad this is ``a.to(device).to(dtype)``, which copies nothing that is in place."""
+    dtype = a.dtype if dtype is None else dtype
+    if not pad:
+        return a.to(device).to(dtype)
+    out = torch.empty((a.shape[0] + pad, *a.shape[1:]), dtype=dtype, device=device)
+    out[a.shape[0] :].zero_()
+    # A host→device copy_ between dtypes would convert on the host: a crosses first.
+    out[: a.shape[0]].copy_(a if a.dtype == dtype else a.to(device))
+    return out
+
+
+def to_device(a: npt.ArrayLike, device: torch.device, dtype: Any = None, pad: int = 0) -> torch.Tensor:
     """Host array → tensor on ``device`` (a read-only array is copied first: torch warns on
-    wrapping a non-writable buffer)."""
+    wrapping a non-writable buffer), followed by ``pad`` zero rows (:func:`padded`)."""
     a = np.ascontiguousarray(a, dtype=dtype)
     if not a.flags.writeable:
         a = a.copy()
-    return torch.from_numpy(a).to(device)
+    return padded(torch.from_numpy(a), pad, device)
 
 
 def torch_dtype(dtype: npt.DTypeLike) -> torch.dtype:

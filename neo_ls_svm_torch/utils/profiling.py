@@ -38,7 +38,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 # The buffer of finished spans: the newest SPAN_BUFFER_SIZE are kept, older ones dropped
-# and counted. A fit records 13.
+# and counted. A fit records 14.
 SPAN_BUFFER_SIZE = 16384
 _finished: collections.deque = collections.deque(maxlen=SPAN_BUFFER_SIZE)
 _dropped = 0

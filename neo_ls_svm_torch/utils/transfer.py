@@ -12,6 +12,7 @@ import numpy as np
 import numpy.typing as npt
 import torch
 
+from neo_ls_svm_torch.utils.device import padded
 from neo_ls_svm_torch.utils.profiling import span
 
 
@@ -46,27 +47,35 @@ def upload_rows(
     transfer: str,
     device: torch.device,
     grid_rows: npt.NDArray | None = None,
+    pad_rows: int = 0,
 ) -> torch.Tensor:
-    """Feature rows → a tensor of X's dtype on ``device``, crossing at ``transfer``'s width.
+    """Feature rows → a tensor of X's dtype on ``device``, crossing at ``transfer``'s width,
+    followed by ``pad_rows`` zero rows written on the device.
 
     ``"float32"`` uploads X as it is (whatever its dtype). ``"bfloat16"`` rounds the
     features to an 8-bit mantissa on the host. ``"int8"`` quantises them on the
     per-column grid of ``grid_rows`` (X itself when None) and multiplies by the grid's
-    scale on the device. The upload is the span ``neo.upload``, whose ``bytes`` attribute
-    counts what crosses to the device (``utils/profiling.py``).
+    scale on the device. The result is one ``(n + pad_rows, d)`` buffer on the device: X's
+    rows are copied (and widened) into its head and its tail is zero-filled there, so the
+    host makes no padded copy of X and the device holds X once at its width. The upload is
+    the span ``neo.upload``, whose ``bytes`` attribute counts what crosses to the device and
+    ``pad_rows`` the rows zero-filled on it (``utils/profiling.py``).
     """
     with span("neo.upload", device=device) as crossed:
         X = np.ascontiguousarray(X)
         dtype = torch.from_numpy(np.empty(0, X.dtype)).dtype
+        crossed["pad_rows"] = pad_rows
         if transfer == "bfloat16":
             crossed["bytes"] = X.size * 2
-            return torch.from_numpy(X).to(torch.bfloat16).to(device).to(dtype)
+            return padded(torch.from_numpy(X).to(torch.bfloat16), pad_rows, device, dtype)
         if transfer == "int8":
             scale, cast_fn = symmetric_int8_grid(X if grid_rows is None else grid_rows)
             X_q = cast_fn(X)
             crossed["bytes"] = X_q.nbytes + scale.nbytes
-            return torch.from_numpy(X_q).to(device).to(dtype) * torch.from_numpy(scale).to(device)[None, :]
+            out = padded(torch.from_numpy(X_q), pad_rows, device, dtype)
+            out[: X.shape[0]].mul_(torch.from_numpy(scale).to(device)[None, :])
+            return out
         if not X.flags.writeable:
             X = X.copy()  # torch warns on wrapping a non-writable buffer
         crossed["bytes"] = X.nbytes
-        return torch.from_numpy(X).to(device)
+        return padded(torch.from_numpy(X), pad_rows, device)

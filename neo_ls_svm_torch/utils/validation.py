@@ -92,6 +92,13 @@ def check_is_fitted(estimator: Any, attributes: list[str] | None = None) -> None
         raise NotFittedError(msg)
 
 
+def assert_all_finite(X: npt.NDArray[Any]) -> None:
+    """Raise sklearn's ``ValueError`` when a floating array holds a NaN or an infinity."""
+    if np.issubdtype(X.dtype, np.floating) and not np.all(np.isfinite(X)):
+        msg = "Input contains NaN or infinity."
+        raise ValueError(msg)
+
+
 def check_array(
     X: Any,
     *,
@@ -140,9 +147,8 @@ def check_array(
         allowed = dtype if isinstance(dtype, tuple) else (dtype,)
         if X.dtype not in [np.dtype(d) for d in allowed]:
             X = X.astype(allowed[0])
-    if ensure_all_finite and np.issubdtype(X.dtype, np.floating) and not np.all(np.isfinite(X)):
-        msg = "Input contains NaN or infinity."
-        raise ValueError(msg)
+    if ensure_all_finite:
+        assert_all_finite(X)
     if X.shape[0] < ensure_min_samples:
         msg = (
             f"Found array with {X.shape[0]} sample(s) while a minimum of "
@@ -162,12 +168,14 @@ def check_X_y(
     dtype: tuple[type, ...] | type | None = (np.float64, np.float32),
     ensure_min_samples: int = 1,
     y_numeric: bool = False,
+    ensure_all_finite: bool = True,
 ) -> tuple[npt.NDArray[Any], npt.NDArray[Any]]:
-    """Validate a feature matrix and target vector together."""
+    """Validate a feature matrix and target vector together. ``ensure_all_finite`` applies
+    to X alone: y is always scanned."""
     if y is None:
         msg = "This estimator requires y to be passed, but the target y is None."
         raise ValueError(msg)
-    X = check_array(X, dtype=dtype, ensure_min_samples=ensure_min_samples)
+    X = check_array(X, dtype=dtype, ensure_min_samples=ensure_min_samples, ensure_all_finite=ensure_all_finite)
     if hasattr(y, "to_numpy"):
         y = y.to_numpy()
     y = np.asarray(y)

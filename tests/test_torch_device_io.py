@@ -8,6 +8,12 @@ formulas, and the isotonic steps magnify such rounding (7e-12 was seen).
 Validation of a tensor is metadata-only: no finiteness scan. A tensor on another device
 raises ``ValueError`` naming both devices (a ``meta`` tensor stands in for the other device
 here: it has a shape and a dtype and lies on no CPU). ``fit`` takes a tensor too.
+
+A NumPy X on the device pre-transform's full-width route crosses as the caller holds it:
+``upload_rows`` pads it on the device, bit for bit as the host's padded copy would, and the
+fit equals the tensor lane's in every fitted attribute. The device, not the host, checks
+such an X for NaN and inf; every route raises sklearn's error and leaves the estimator as it
+found it.
 """
 
 import numpy as np
@@ -18,7 +24,11 @@ import neo_ls_svm_torch.models.estimator as t_est
 from neo_ls_svm_torch.ops.affine import AffineSeparator
 from neo_ls_svm_torch.ops.orff import OrthogonalRandomFourierFeatures as TorchORFF
 from neo_ls_svm_torch.utils import device as t_device
+from neo_ls_svm_torch.utils import profiling
+from neo_ls_svm_torch.utils import validation as t_validation
+from neo_ls_svm_torch.utils.transfer import upload_rows
 
+from ._torch_compare import same
 from .conftest import make_classification_dataset, make_regression_dataset
 
 torch.set_num_threads(2)
@@ -223,3 +233,102 @@ def test_fit_on_a_tensor_scans_no_feature_and_widens_other_dtypes() -> None:
     )
     assert narrow._compute_dtype() == np.float32
     assert narrow.predict(torch.from_numpy(X_test.astype(np.float32))).dtype == torch.float64  # y's dtype
+
+
+# ------------------------------------------------- a NumPy X staged on the device
+
+# A NumPy fit's routes: the parameters, the rows, and whether the device (True) or the host
+# checks X for NaN and inf.
+_NUMPY_ROUTES = {
+    "streaming_device": ({"pre_transform": "device"}, 1500, True),
+    "inmemory_device": ({"pre_transform": "device"}, 1500, True),
+    "host_pre_transform": ({"pre_transform": "host"}, 1500, False),
+    "dual": ({}, 400, False),
+    "bfloat16": ({"pre_transform": "device", "transfer": "bfloat16"}, 1500, False),
+    "int8": ({"pre_transform": "device", "transfer": "int8"}, 1500, False),
+}
+
+
+@pytest.mark.parametrize("poison", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("route", sorted(_NUMPY_ROUTES))
+def test_nan_or_inf_in_numpy_x_raises_on_every_route_and_leaves_no_fitted_state(route, poison, monkeypatch) -> None:
+    params, n, on_device = _NUMPY_ROUTES[route]
+    if route == "streaming_device":
+        monkeypatch.setattr(t_est, "STREAMING_BYTES_THRESHOLD", 0)
+        monkeypatch.setattr(t_est, "STREAMING_ROW_CHUNK", 512)
+    X, y, _ = _data("regression", "primal")
+    X, y = X[:n].copy(), y[:n]
+    X[n - 7, 3] = poison  # one value, near the end of the rows
+    model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=32), device="cpu", **params)
+    unfitted = set(vars(model))
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match=r"^Input contains NaN or infinity\.$"):
+            model.fit(X, y)
+    assert set(vars(model)) == unfitted
+    with pytest.raises(t_validation.NotFittedError):
+        model.predict(X[:5])
+    # A region that raises leaves no record: the device's check ran after a finished validation.
+    finished = [r["name"] for r in profiling.spans()]
+    assert ("neo.fit.validate" in finished) == on_device and "neo.fit.finite" not in finished
+
+
+def test_a_refit_that_finds_nan_on_the_device_keeps_the_previous_fit() -> None:
+    X, y, X_test = _data("regression", "primal")
+    model = t_est.NeoLSSVM(primal_feature_map=TorchORFF(num_features=32), device="cpu", pre_transform="device")
+    before = model.fit(X, y).predict(X_test)
+    fitted = dict(vars(model))
+    poisoned = X.copy()
+    poisoned[0, 0] = np.nan
+    with pytest.raises(ValueError, match="NaN or infinity"):
+        model.fit(poisoned, y[::-1])
+    assert vars(model).keys() == fitted.keys() and all(vars(model)[k] is v for k, v in fitted.items())
+    np.testing.assert_array_equal(model.predict(X_test), before)
+
+
+@pytest.mark.parametrize("transfer", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_upload_rows_pads_on_the_device_as_the_host_padded_upload(dtype, transfer) -> None:
+    rows, pad = 1000, (-1000) % 384
+    X = (np.random.RandomState(5).randn(rows, 6) * [1, 10, 1e-3, 0, 1e4, 1]).astype(dtype)
+    padded = np.vstack([X, np.zeros((pad, X.shape[1]), dtype)])
+    cpu = torch.device("cpu")
+    grid = X if transfer == "int8" else None  # the fit's grid: the real rows alone
+    on_device = upload_rows(X, transfer, cpu, grid_rows=grid, pad_rows=pad)
+    on_host = upload_rows(padded, transfer, cpu, grid_rows=grid)
+    assert on_device.dtype == on_host.dtype == torch.from_numpy(X).dtype
+    assert on_device.shape == (rows + pad, X.shape[1])
+    assert on_device.numpy().tobytes() == on_host.numpy().tobytes()
+    assert not on_device[rows:].numpy().any() and not np.signbit(on_device[rows:].numpy()).any()
+
+
+def test_streaming_numpy_fit_equals_the_tensor_lane_in_every_fitted_attribute(monkeypatch) -> None:
+    monkeypatch.setattr(t_est, "STREAMING_BYTES_THRESHOLD", 0)
+    monkeypatch.setattr(t_est, "STREAMING_ROW_CHUNK", 512)  # 1500 rows → 36 padding rows
+    X, y, _ = _data("classification", "primal")
+    params = {"primal_feature_map": TorchORFF(num_features=32), "device": "cpu", "pre_transform": "device"}
+    from_numpy = t_est.NeoLSSVM(**params).fit(X, y)
+    from_tensor = t_est.NeoLSSVM(**params).fit(torch.from_numpy(X), y)
+    assert from_numpy.pre_transform_ == "device"
+    numpy_state, tensor_state = from_numpy._fitted_state(), from_tensor._fitted_state()
+    assert numpy_state.keys() == tensor_state.keys()
+    for name, value in numpy_state.items():
+        assert same(value, tensor_state[name]), name
+
+
+def test_an_upload_with_no_padding_shares_the_callers_rows_on_the_cpu() -> None:
+    X = np.random.RandomState(6).randn(100, 4)
+    cpu = torch.device("cpu")
+    assert np.shares_memory(upload_rows(X, "float32", cpu).numpy(), X)
+    assert np.shares_memory(t_device.to_device(X, cpu).numpy(), X)
+
+
+@pytest.mark.parametrize("pad", [0, 7])
+@pytest.mark.parametrize("source", ["same", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_padded_rows_equal_the_rows_concatenated_with_zeros(dtype, source, pad) -> None:
+    a = torch.randn(50, 3, dtype=dtype)
+    a = a if source == "same" else a.to(torch.bfloat16)
+    out = t_device.padded(a, pad, torch.device("cpu"), dtype)
+    assert out.dtype == dtype and out.shape == (50 + pad, 3)
+    assert torch.equal(out, torch.cat([a.to(dtype), torch.zeros(pad, 3, dtype=dtype)]))

@@ -3,9 +3,11 @@ deployment's route at a small size on the CPU: the streaming solver with the dev
 pre-transform.
 
 With no profiler a span records nothing and enters no ``record_function``. Under
-``trace()`` each fit records one tree of 13 ``neo.*`` spans, the same ranges are in the
+``trace()`` each fit records one tree of 14 ``neo.*`` spans, the same ranges are in the
 Chrome trace, the upload and the pull count their bytes, the buffer keeps its bound, and
-the fit's attributes are bit-equal with the profiler on and off."""
+the fit's attributes are bit-equal with the profiler on and off. The upload counts the
+padding rows it writes on the device, and each route says who checked X for NaN and inf:
+the device (``neo.fit.finite``) or the host (``neo.fit.validate``'s ``host_scanned_bytes``)."""
 
 import collections
 import json
@@ -19,6 +21,8 @@ from neo_ls_svm_torch.models import estimator, routing
 from neo_ls_svm_torch.utils import profiling
 from neo_ls_svm_torch.utils.transfer import upload_rows
 
+from ._torch_compare import same
+
 # Each span of a fit and the span open around it.
 PARENT = {
     "neo.fit": None,
@@ -26,6 +30,7 @@ PARENT = {
     "neo.fit.target": "neo.fit",
     "neo.fit.stage": "neo.fit",
     "neo.upload": "neo.fit",
+    "neo.fit.finite": "neo.fit",
     "neo.pretransform": "neo.fit",
     "neo.pretransform.normalizer": "neo.pretransform",
     "neo.solve": "neo.fit",
@@ -125,7 +130,8 @@ def test_each_fit_records_one_tree_of_the_program_spans(two_traced_fits):
             assert record["device_ms"] is None  # a CPU fit has no device clock
         prologue = [by_name[n] for n in ("neo.fit.validate", "neo.fit.target", "neo.fit.stage")]
         assert by_name["neo.fit"]["t0_ns"] <= prologue[0]["t0_ns"]
-        for earlier, later in zip(prologue, prologue[1:] + [by_name["neo.upload"]]):
+        staging = [*prologue, by_name["neo.upload"], by_name["neo.fit.finite"], by_name["neo.pretransform"]]
+        for earlier, later in zip(staging, staging[1:]):
             assert earlier["t1_ns"] <= later["t0_ns"]
 
 
@@ -166,8 +172,55 @@ def test_the_upload_counts_the_bytes_that_cross(transfer, dtype, expected):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         out = upload_rows(X, transfer, torch.device("cpu"))
     (record,) = profiling.spans()
-    assert record["name"] == "neo.upload" and record["attrs"] == {"bytes": expected}
+    assert record["name"] == "neo.upload" and record["attrs"] == {"bytes": expected, "pad_rows": 0}
     assert out.dtype == torch.from_numpy(X).dtype and out.shape == X.shape
+
+
+def test_the_upload_counts_the_rows_it_pads_on_the_device(two_traced_fits):
+    records, _, _ = two_traced_fits
+    padded = [r["attrs"]["pad_rows"] for r in records if r["name"] == "neo.upload"]
+    assert padded == [(-ROWS) % CHUNK] * 2 and padded[0] > 0
+
+
+def test_the_device_check_reads_every_row_once_per_fit(two_traced_fits):
+    records, _, _ = two_traced_fits
+    for tree in _trees(records).values():
+        (validate,) = [r for r in tree if r["name"] == "neo.fit.validate"]
+        (finite,) = [r for r in tree if r["name"] == "neo.fit.finite"]
+        assert validate["attrs"] == {"host_scanned_bytes": 0}
+        assert finite["attrs"] == {"bytes": ROWS * COLUMNS * 4}
+
+
+# Each route of a NumPy fit: its parameters, its row count, and whether the device checks X.
+_LANES = {
+    "streaming": ({}, ROWS, True),
+    "inmemory": ({}, ROWS, True),
+    "host_pre_transform": ({"pre_transform": "host"}, ROWS, False),
+    "dual": ({}, 400, False),
+    "bfloat16": ({"transfer": "bfloat16"}, ROWS, False),
+    "int8": ({"transfer": "int8"}, ROWS, False),
+}
+
+
+@pytest.mark.parametrize("lane", sorted(_LANES))
+def test_each_route_says_who_checked_x_for_nan_and_inf(lane, monkeypatch):
+    params, rows, on_device = _LANES[lane]
+    _streaming(monkeypatch)
+    if lane != "streaming":
+        monkeypatch.setattr(estimator, "STREAMING_BYTES_THRESHOLD", 6 * 1024**3)
+    X, y = (a[:rows] for a in _data())
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        model = NeoLSSVM(device="cpu", random_state=7, **params).fit(X, y)
+    records = profiling.spans()
+    assert model.dual_ == (lane == "dual")
+    (validate,) = [r for r in records if r["name"] == "neo.fit.validate"]
+    finite = [r for r in records if r["name"] == "neo.fit.finite"]
+    (upload,) = [r for r in records if r["name"] == "neo.upload"] or [None]
+    assert validate["attrs"] == {"host_scanned_bytes": 0 if on_device else X.nbytes}
+    assert [r["attrs"] for r in finite] == ([{"bytes": X.nbytes}] if on_device else [])
+    if lane in ("streaming", "inmemory"):
+        assert upload["attrs"]["pad_rows"] == ((-rows) % CHUNK if lane == "streaming" else 0)
 
 
 def test_the_buffer_keeps_its_bound_and_counts_what_it_drops(monkeypatch):
@@ -195,21 +248,6 @@ def test_annotate_is_a_span_and_holds_a_fit_in_its_tree(monkeypatch):
     assert fit["parent"] == caller["id"] and {r["root"] for r in records} == {caller["id"]}
 
 
-def _same(a, b) -> bool:
-    """Bit-equal arrays and tensors, equal plain values, the same inside dicts and lists."""
-    if isinstance(a, np.ndarray):
-        return isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
-    if isinstance(a, torch.Tensor):
-        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
-    if isinstance(a, dict):
-        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
-    if isinstance(a, (list, tuple)):
-        return type(a) is type(b) and len(a) == len(b) and all(map(_same, a, b))
-    if isinstance(a, (int, float, complex, str, bool, type(None), torch.device)):
-        return a == b or (a != a and b != b)
-    return type(a) is type(b)  # an object of the fit, such as its feature map
-
-
 def test_a_fit_is_bit_equal_with_the_profiler_on(monkeypatch, tmp_path):
     _streaming(monkeypatch)
     plain = _fit()
@@ -217,4 +255,4 @@ def test_a_fit_is_bit_equal_with_the_profiler_on(monkeypatch, tmp_path):
         traced = _fit()
     assert vars(plain).keys() == vars(traced).keys()
     for name, value in vars(plain).items():
-        assert _same(value, vars(traced)[name]), name
+        assert same(value, vars(traced)[name]), name
