@@ -47,6 +47,7 @@ from neo_ls_svm_torch.models.conformal import ConformalMixin
 from neo_ls_svm_torch.models.dual import dual_decision_function, dual_fit, dual_predict_var
 from neo_ls_svm_torch.models.isotonic import IsotonicCalibrator
 from neo_ls_svm_torch.models.primal import (
+    _primal_working_set_bytes,
     gamma_grid,
     primal_decision_function,
     primal_fit,
@@ -143,12 +144,6 @@ _LAZY_CALIBRATION = {
     "predict_proba_calibrator_": "_materialize_calibrator",
     **dict.fromkeys((*_CONFORMAL_SPLIT_ATTRS, "conformal_l1_", "conformal_l2_"), "_materialize_conformal_split"),
 }
-
-
-def _primal_working_set_bytes(n_rows: int, num_features: int, itemsize: int) -> int:
-    """Primal-solver working-set estimate: ~3 transient copies of the n×2M real
-    embedding of φ. The fit's route decision thresholds on it."""
-    return 3 * n_rows * 2 * (num_features + 1) * itemsize
 
 
 class _PrimalPlan(NamedTuple):
@@ -617,7 +612,12 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
             M_d, b_d = _to_device(M_map.astype(dtype), device), _to_device(b_map.astype(dtype), device)
             C_emb = _complexity_embedding(fm, dtype, n_rows, device)
         # precision="fast" reaches the γ-sweep alone, as JAX's sweep_precision=DEFAULT.
-        kw = {"is_classifier": is_classifier, "num_samples": n_rows, "sweep_precision": self.precision}
+        kw = {
+            "is_classifier": is_classifier,
+            "num_samples": n_rows,
+            "sweep_precision": self.precision,
+            "working_set_bytes": plan.working_set_bytes,
+        }
         if route == "streaming":
             result = primal_fit_streaming(
                 X_d, M_d, b_d, y_d, s_d, g_d, C_emb, row_chunk=STREAMING_ROW_CHUNK, **kw

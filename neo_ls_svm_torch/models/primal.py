@@ -27,7 +27,7 @@ one-pass path.
 """
 
 from collections.abc import Callable
-from typing import Any, Literal
+from typing import Any, Literal, NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +39,12 @@ from neo_ls_svm_torch.utils.profiling import span
 
 # Result keys with one entry per input row (everything else is grid- or basis-sized).
 PER_ROW_KEYS = frozenset({"loo_residuals", "loo_yhat", "loo_leverage", "loo_std", "residuals"})
+
+
+def _primal_working_set_bytes(n_rows: int, num_features: int, itemsize: int) -> int:
+    """Primal-solver working-set estimate: ~3 transient copies of the n×2M real
+    embedding of φ. The estimator's route decision thresholds on it."""
+    return 3 * n_rows * 2 * (num_features + 1) * itemsize
 
 
 def trim_per_row(result: dict, num_samples: int) -> dict:
@@ -80,11 +86,27 @@ def embed_from_gram_blocks(G: torch.Tensor, M: int) -> torch.Tensor:
     return (B + B.T) / 2
 
 
+# Rows of W in each float64 product of the in-memory Gram (:func:`_embedding_gram`).
+GRAM_ROW_BLOCK = 32768
+
+
 def _embedding_gram(W: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
-    """E(φᴴS²φ) from one product: blocks of WᵀS²W recombined into the real embedding."""
+    """E(φᴴS²φ): the blocks of WᵀS²W, recombined into the real embedding, in W's dtype.
+
+    WᵀS²W is summed in float64, one product per ``GRAM_ROW_BLOCK`` rows. A float32 product
+    sums each entry over every row in turn, and terms as alike as the bias column's s²
+    (1/n² on every row of an unweighted fit) lose a share of the sum that grows with n:
+    4e-4 over 463,715 rows, a Gram farther from float64 than one formed in TF32, which
+    the LOO re-solve then multiplies by its condition number. The streaming solver's K1
+    bounds its float32 accumulation runs instead (``ops/cuda/csrc/gram.cu``).
+    """
     M2 = W.shape[1]
-    G = (W.T * s2[None, :]) @ W
-    return embed_from_gram_blocks(G, M2 // 2)
+    G = torch.zeros((M2, M2), dtype=torch.float64, device=W.device)
+    for start in range(0, W.shape[0], GRAM_ROW_BLOCK):
+        rows = slice(start, start + GRAM_ROW_BLOCK)
+        W_b = W[rows].double()
+        G += (W_b.T * s2[None, rows].double()) @ W_b
+    return embed_from_gram_blocks(G, M2 // 2).to(W.dtype)
 
 
 def _inv_c0_scale(n: "torch.Tensor | int", M: int, dtype: torch.dtype, device: Any) -> torch.Tensor:
@@ -181,61 +203,38 @@ def _loo_score(
     return 1.0 - row_sum(s @ (e_raw * e_raw)) / row_sum(s @ ((y - y_mean) * (y - y_mean)))
 
 
-@matmul_precision("ieee")
-def primal_fit(
-    X: torch.Tensor,
-    M_map: torch.Tensor,
-    b_map: torch.Tensor,
+class _Swept(NamedTuple):
+    """What the in-memory γ-sweep leaves: its answer, the LOO error and the γ-selection
+    objective of every γ, each summed over all rows, and the per-row products Gu∘Gu and
+    Gu∘k that the optimum's statistics reuse."""
+
+    loo_errors: torch.Tensor
+    objective: torch.Tensor
+    Gu2: torch.Tensor
+    Gu_k: torch.Tensor
+
+
+def _sweep_in_memory(
+    W: torch.Tensor,
+    Qs: torch.Tensor,
+    k: torch.Tensor,
+    lam: torch.Tensor,
     y: torch.Tensor,
-    sample_weight: torch.Tensor,
+    s: torch.Tensor,
+    s2: torch.Tensor,
     gammas: torch.Tensor,
-    C_emb: torch.Tensor | None = None,
+    inv_c0: torch.Tensor,
     *,
     is_classifier: bool,
-    gamma_chunk: int = 128,
-    num_samples: int | None = None,
-    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
-    sweep_precision: Literal["high", "fast"] = "high",
-) -> dict[str, torch.Tensor]:
-    """Fit the primal LS-SVM in memory and tune γ by closed-form leave-one-out error.
-
-    Returns the fitted coefficients (in embedding space), the eigenbasis needed for
-    out-of-sample predictive variance, and every LOO statistic the estimator exposes
-    (ref attribute list ``_neo_ls_svm.py:146-187``).
-
-    ``num_samples`` overrides the row count used in the c₀ normalisation so callers may
-    pad X with zero-weight rows without perturbing the solution. ``C_emb`` is the
-    *normalised* complexity matrix in the real embedding (2M×2M); None is the shipped
-    scaled identity.
-
-    ``row_sum`` is applied to every sum over rows (the weight total, the Gram, WᵀS²y,
-    the sweep's sums and the LOO score's moments): the identity here, and a sum across
-    ranks when X holds one rank's rows (``parallel/mesh.py::sharded_primal_fit``). The
-    per-row outputs are then this rank's rows.
-
-    ``sweep_precision`` controls only the γ-sweep's two contractions, (Gu∘k)·r and
-    (Gu∘Gu)·r: "fast" runs them in one TF32 pass on a CUDA device, as JAX runs them at
-    ``sweep_precision``. The Gram, Gu, WᵀS²y, the optimum's statistics and the Cholesky
-    re-solve stay IEEE float32.
-    """
-    check_sweep_precision(sweep_precision)
-    n = X.shape[0] if num_samples is None else num_samples
-    dtype, device = X.dtype, X.device
-    s = sample_weight / row_sum(torch.sum(sample_weight))
-    s2 = s * s
-    W = _features_real_pair(X, M_map, b_map)
-    M2 = W.shape[1]
-    M = M2 // 2
-    # c₀: the normalised complexity matrix is c₀·I with c₀ = 1/(n·M) (ref :117-118 with
-    # the shipped identity complexity matrix; φ.size = n·M).
-    inv_c0 = _inv_c0_scale(n, M, dtype, device)
-    inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
-    B = row_sum(_embedding_gram(W, s2))
-    sign = _sign_vector(M, dtype, device)
-    lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
+    gamma_chunk: int,
+    sweep_precision: Literal["high", "fast"],
+    row_sum: Callable[[torch.Tensor], torch.Tensor],
+) -> _Swept:
+    """The LOO error and the γ-selection objective of every γ on the grid, from the feature
+    matrix W held whole: Gu = W·Qs, then per chunk of γ the resolvent columns
+    r = 1/(γ + λ) and the two contractions (Gu∘k)·r and (Gu∘Gu)·r, the residuals, their
+    clip and their weighted sums (:func:`primal_fit`)."""
     Gu = W @ Qs  # n×2M: rows are zᵢᵀQ.
-    b_vec = row_sum(W.T @ (s2 * y))  # Wᵀ S² y
-    k = Qs.T @ b_vec  # QᵀZᵀS²y
     Gu2 = Gu * Gu
     Gu_k = Gu * k[None, :]
     s2_col = s2[:, None]
@@ -252,13 +251,38 @@ def primal_fit(
         loo_err_parts.append(loo_err_c)
         obj_parts.append(obj_c)
     loo_errors_gs, objective = row_sum(torch.stack([torch.cat(loo_err_parts), torch.cat(obj_parts)]))
-    optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
+    return _Swept(loo_errors_gs, objective, Gu2, Gu_k)
+
+
+def _optimum_in_memory(
+    W: torch.Tensor,
+    B: torch.Tensor,
+    C_emb: torch.Tensor | None,
+    swept: _Swept,
+    y: torch.Tensor,
+    s: torch.Tensor,
+    s2: torch.Tensor,
+    gammas: torch.Tensor,
+    lam: torch.Tensor,
+    Qs: torch.Tensor,
+    b_vec: torch.Tensor,
+    sign: torch.Tensor,
+    inv_c0: torch.Tensor,
+    inv_c0_id: torch.Tensor,
+    *,
+    is_classifier: bool,
+    row_sum: Callable[[torch.Tensor], torch.Tensor],
+) -> dict[str, torch.Tensor]:
+    """The γ at the objective's first minimum, its per-row LOO statistics from the sweep's
+    products, the Cholesky re-solve of β̂ there and the training residuals: the result of
+    :func:`primal_fit`."""
+    optimum = torch.argmin(swept.objective)  # the FIRST minimum, as jnp.argmin
     gamma_opt = gammas[optimum]
 
     # Recompute the optimum's full LOO vectors (cheap: one resolvent column).
     r_opt = 1.0 / (gamma_opt + lam)
-    sigma2 = inv_c0 * (Gu2 @ r_opt)
-    phi_beta_opt = inv_c0 * (Gu_k @ r_opt)
+    sigma2 = inv_c0 * (swept.Gu2 @ r_opt)
+    phi_beta_opt = inv_c0 * (swept.Gu_k @ r_opt)
     lev_opt = s2 * sigma2
     e_raw = (phi_beta_opt - y) / (1.0 - lev_opt)
     e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
@@ -281,15 +305,99 @@ def primal_fit(
         "optimum_index": optimum,
         "lam": lam,
         "Qs": Qs,
-        "loo_errors_gammas": loo_errors_gs,
+        "loo_errors_gammas": swept.loo_errors,
         "loo_residuals": e_clipped,
         "loo_yhat": y + e_clipped,
         "loo_leverage": lev_opt,
-        "loo_error": loo_errors_gs[optimum],
+        "loo_error": swept.loo_errors[optimum],
         "loo_score": loo_score,
         "loo_std": torch.sqrt(loo_sigma2),
         "residuals": residuals,
     }
+
+
+@matmul_precision("ieee")
+def primal_fit(
+    X: torch.Tensor,
+    M_map: torch.Tensor,
+    b_map: torch.Tensor,
+    y: torch.Tensor,
+    sample_weight: torch.Tensor,
+    gammas: torch.Tensor,
+    C_emb: torch.Tensor | None = None,
+    *,
+    is_classifier: bool,
+    gamma_chunk: int = 128,
+    num_samples: int | None = None,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    sweep_precision: Literal["high", "fast"] = "high",
+    working_set_bytes: int | None = None,
+) -> dict[str, torch.Tensor]:
+    """Fit the primal LS-SVM in memory and tune γ by closed-form leave-one-out error.
+
+    Returns the fitted coefficients (in embedding space), the eigenbasis needed for
+    out-of-sample predictive variance, and every LOO statistic the estimator exposes
+    (ref attribute list ``_neo_ls_svm.py:146-187``).
+
+    ``num_samples`` overrides the row count used in the c₀ normalisation so callers may
+    pad X with zero-weight rows without perturbing the solution. ``C_emb`` is the
+    *normalised* complexity matrix in the real embedding (2M×2M); None is the shipped
+    scaled identity.
+
+    ``row_sum`` is applied to every sum over rows (the weight total, the Gram, WᵀS²y,
+    the sweep's sums and the LOO score's moments): the identity here, and a sum across
+    ranks when X holds one rank's rows (``parallel/mesh.py::sharded_primal_fit``). The
+    per-row outputs are then this rank's rows.
+
+    ``sweep_precision`` controls only the γ-sweep's two contractions, (Gu∘k)·r and
+    (Gu∘Gu)·r: "fast" runs them in one TF32 pass on a CUDA device, as JAX runs them at
+    ``sweep_precision``. Gu, WᵀS²y, the optimum's statistics and the Cholesky re-solve
+    stay IEEE float32, and the Gram is summed in float64 (:func:`_embedding_gram`).
+
+    ``working_set_bytes`` is the fit plan's estimate that chose this route, recorded on the
+    ``neo.solve`` span; None records the estimate for the rows X holds (on a mesh, this
+    rank's: the share the estimator holds to the threshold).
+
+    Its spans (README, "Profiling a fit"): ``neo.solve`` (``route="inmemory"``) around
+    ``neo.solve.gram`` (W and the embedded Gram), ``neo.solve.eigh`` (the eigenbasis,
+    WᵀS²y and k), ``neo.solve.sweep`` (:func:`_sweep_in_memory`) and
+    ``neo.solve.optimum`` (:func:`_optimum_in_memory`).
+    """
+    n = X.shape[0] if num_samples is None else num_samples
+    dtype, device = X.dtype, X.device
+    if working_set_bytes is None:
+        working_set_bytes = _primal_working_set_bytes(X.shape[0], M_map.shape[1], X.element_size())
+    with span("neo.solve", device=device, route="inmemory", working_set_bytes=working_set_bytes):
+        check_sweep_precision(sweep_precision)
+        s = sample_weight / row_sum(torch.sum(sample_weight))
+        s2 = s * s
+        with span("neo.solve.gram", device=device):
+            W = _features_real_pair(X, M_map, b_map)
+            B = row_sum(_embedding_gram(W, s2))
+        M2 = W.shape[1]
+        M = M2 // 2
+        # c₀: the normalised complexity matrix is c₀·I with c₀ = 1/(n·M) (ref :117-118 with
+        # the shipped identity complexity matrix; φ.size = n·M).
+        inv_c0 = _inv_c0_scale(n, M, dtype, device)
+        inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
+        sign = _sign_vector(M, dtype, device)
+        with span("neo.solve.eigh", device=device):
+            lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
+            b_vec = row_sum(W.T @ (s2 * y))  # Wᵀ S² y
+            k = Qs.T @ b_vec  # QᵀZᵀS²y
+        chunks = -(-gammas.shape[0] // gamma_chunk)
+        with span("neo.solve.sweep", device=device, gamma_chunks=chunks):
+            swept = _sweep_in_memory(
+                W, Qs, k, lam, y, s, s2, gammas, inv_c0,
+                is_classifier=is_classifier, gamma_chunk=gamma_chunk, sweep_precision=sweep_precision,
+                row_sum=row_sum,
+            )
+        with span("neo.solve.optimum", device=device):
+            result = _optimum_in_memory(
+                W, B, C_emb, swept, y, s, s2, gammas, lam, Qs, b_vec, sign, inv_c0, inv_c0_id,
+                is_classifier=is_classifier, row_sum=row_sum,
+            )
+    return result
 
 
 @matmul_precision("ieee")
@@ -356,6 +464,7 @@ def primal_fit_streaming(
     num_samples: int | None = None,
     row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
     sweep_precision: Literal["high", "fast"] = "high",
+    working_set_bytes: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """Streaming variant of :func:`primal_fit`: O(row_chunk·2M) device memory.
 
@@ -371,15 +480,18 @@ def primal_fit_streaming(
     Gram, the γ-sweep's sums and the LOO score's moments
     (``parallel/mesh.py::sharded_primal_fit_streaming``). ``sweep_precision`` is K2's
     ``precision`` (its one-pass TF32 path under "fast"); passes 1 and 3 stay IEEE.
+    ``working_set_bytes`` is :func:`primal_fit`'s.
     """
-    with span("neo.solve", device=X.device):
+    n_pad = X.shape[0]
+    n = n_pad if num_samples is None else num_samples
+    dtype, device = X.dtype, X.device
+    if working_set_bytes is None:
+        working_set_bytes = _primal_working_set_bytes(n_pad, M_map.shape[1], X.element_size())
+    with span("neo.solve", device=device, route="streaming", working_set_bytes=working_set_bytes):
         check_sweep_precision(sweep_precision)
-        n_pad = X.shape[0]
         if n_pad % row_chunk:
             msg = f"pad rows to a multiple of row_chunk={row_chunk}, got {n_pad} rows"
             raise ValueError(msg)
-        n = n_pad if num_samples is None else num_samples
-        dtype, device = X.dtype, X.device
         D = M_map.shape[1]
         M = D + 1
         M2 = 2 * M
