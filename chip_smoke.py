@@ -35,8 +35,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
    kernels' launch counts are set to 0 just before the fit and read just after it, with the
    peak device memory of the fit (bounded by the kernels' row chunks, not by n).
    ``main_path_kernels``: each kernel's output from that fit, against its plain version in
-   float64 on the very tensors the fit gave it (the Gram within 1e-5, the sweep as above);
-   then each kernel timed on those tensors. The ``kernels`` line reports these numbers.
+   float64 on the very tensors the fit gave it (the Gram within 1e-5, the sweep as above,
+   K3's num, σ² and residual within 1e-5, and K3 launched again for the same bits); then
+   each kernel timed on those tensors, K3 beside ``torch.matmul(W, Qs)`` in IEEE float32. The
+   ``kernels`` line reports these numbers.
    ``fit_1m_breakdown``: the fit's steps timed one by one (upload, device pre-transform,
    solve, the pull of the result), and one whole fit under torch.profiler for the device's
    idle share. ``fit_1m_host``: the same data with ``pre_transform="host"``, LOO R² within
@@ -123,7 +125,7 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
     of them with the checks of (c). Four ranks on one card say nothing of scaling.
     ``python3 chip_smoke.py mesh`` runs the build and this phase only.
 
-Then a ``kernels`` line (K1, K2, K2's one-pass path, K1 f64 and K2 f64), the card's name and power limit
+Then a ``kernels`` line (K1, K2, K3, K2's one-pass path, K1 f64 and K2 f64), the card's name and power limit
 as ``nvidia-smi`` reports them, and the result line ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 
@@ -161,6 +163,7 @@ from neo_ls_svm_torch.models.primal import (
 from neo_ls_svm_torch.ops.cuda import _build
 from neo_ls_svm_torch.ops.cuda import gram as gram_mod
 from neo_ls_svm_torch.ops import affine as affine_mod
+from neo_ls_svm_torch.ops.cuda import pass3 as pass3_mod
 from neo_ls_svm_torch.ops.cuda import sweep as sweep_mod
 from neo_ls_svm_torch.ops.orff import OrthogonalRandomFourierFeatures
 from neo_ls_svm_torch.ops.pretransform_device import (
@@ -197,6 +200,10 @@ GRAM_TOL_F32, GRAM_TOL_F32_1M = 2e-6, 1e-5
 # The float64 kernels against their float64 plain versions: the Gram per entry, as above,
 # and the sweep's LOO error and objective (relative, elementwise).
 GRAM_TOL_F64, SWEEP_TOL_F64 = 1e-11, 1e-10
+# K3 (pass 3 of the streaming fit) in float32 against its plain version in float64 on the same
+# tensors: num and the residual over the target's sd, σ² over its largest value. A tenth of
+# higgs.fit's LOO limit (1e-4); the kernel read 1.0e-6 at 34,002 rows (tests/test_torch_pass3.py).
+PASS3_TOL_F32 = 1e-5
 
 # Data-sheet peaks of the H100 SXM, dense: TF32 on the tensor cores, FP32 on the CUDA
 # cores, and HBM3 bandwidth. bound_ms on another card needs that card's peaks, so the
@@ -886,7 +893,7 @@ def recording_kernel_calls():
     """Record the arguments and result of each kernel call the streaming solver makes, so
     the main path's own tensors can be held against the plain versions after the fit."""
     calls = {}
-    names = ("fused_augmented_gram", "fused_loo_sweep")
+    names = ("fused_augmented_gram", "fused_loo_sweep", "fused_pass3")
     originals = {name: getattr(primal_mod, name) for name in names}
 
     def recorder(name, fn):
@@ -906,7 +913,45 @@ def recording_kernel_calls():
             setattr(primal_mod, name, fn)
 
 
-def phase_main_path_kernels(calls: dict) -> tuple[dict, dict]:
+def pass3_errors(out: tuple, ref: tuple, y: torch.Tensor) -> list[float]:
+    """K3's (num, σ², residual) against float64: num and the residual over the target's sd,
+    σ² over its largest value."""
+    sd = float(y.double().std())
+    scales = (sd, float(ref[1].abs().max()), sd)
+    return [float((a.double() - b).abs().max()) / scale for a, b, scale in zip(out, ref, scales)]
+
+
+def pass3_timings(args: list[torch.Tensor], kw: dict) -> dict:
+    """K3's time, its plain version's (the solver's pass 3 before K3: cuBLAS IEEE float32) and
+    the yardstick's on these float32 inputs, and its bound: Gu = W·Qs, 2nM₂² operations, at
+    the 3×TF32 rate. The yardstick is W·Qs alone in ``torch.matmul``, IEEE float32, on the
+    features built beforehand."""
+    X, M_map, b_map, y, Qs = args[:5]
+    n, d = X.shape
+    D = M_map.shape[1]
+    M2 = 2 * D + 2
+    with matmul_precision("ieee"):
+        W = primal_mod._features_real_pair(X, M_map, b_map)
+
+    def library():
+        with matmul_precision("ieee"):
+            return torch.matmul(W, Qs)
+
+    record = {
+        "ms": time_ms(lambda: pass3_mod.fused_pass3(*args, **kw)),
+        "plain_ms": time_ms(lambda: pass3_mod.pass3_plain(*args, **kw)),
+        "library_ms": time_ms(library),
+        "library": "torch.matmul(W, Qs) on the built features, IEEE FP32 (TF32 off)",
+    }
+    del W
+    ops = 2 * n * M2 * M2 + 2 * n * d * D + 6 * n * M2
+    nbytes = X.element_size() * (n * d + 4 * n + d * D + D + M2 * (M2 + 1) + 2 * M2)
+    workspace = 4 * 2 * 2 * (-(-M2 // 32) * 32) * (-(-n // 128) * 128)  # W hi and lo, written and read
+    shape = {"n": n, "d": d, "D": D, "dtype": str(X.dtype)[6:]}
+    return {**record, **bound(ops, nbytes, workspace), "shape": shape}
+
+
+def phase_main_path_kernels(calls: dict) -> tuple[dict, dict, dict]:
     """Each kernel's output from the 1M fit against its plain version in float64 on the
     same tensors, then each kernel timed on them."""
     g_args, _, G_k = calls["fused_augmented_gram"]
@@ -935,11 +980,26 @@ def phase_main_path_kernels(calls: dict) -> tuple[dict, dict]:
         "argmin_objective_gap": gap,
         **sweep_timings(list(s_args), s_kw),
     }
-    emit({"phase": "main_path_kernels", "kernels": [gram_record, sweep_record]})
-    return gram_record, sweep_record
+    p_args, p_kw, p_out = calls["fused_pass3"]
+    p_ref = pass3_mod.pass3_plain(*(a.double() for a in p_args), **p_kw)
+    p_err = pass3_errors(p_out, p_ref, p_args[3])
+    check(max(p_err) <= PASS3_TOL_F32, f"1M fit pass 3: (num, σ², residual) off float64 by {p_err}")
+    again = pass3_mod.fused_pass3(*p_args, **p_kw)
+    check(all(torch.equal(a, b) for a, b in zip(again, p_out)), "1M fit pass 3: a second launch gave other bits")
+    pass3_record = {
+        "name": "fused_pass3",
+        "route": "cuda",
+        "source": "neo_ls_svm_torch/ops/cuda/csrc/pass3.cu",
+        "replaces": "none (pass 3 of neo_ls_svm_tpu/models/primal.py::primal_fit_streaming, XLA operations)",
+        "max_err_num_sigma2_residual": p_err,
+        "plain_f32_err_num_sigma2_residual": pass3_errors(pass3_mod.pass3_plain(*p_args, **p_kw), p_ref, p_args[3]),
+        **pass3_timings(list(p_args), p_kw),
+    }
+    emit({"phase": "main_path_kernels", "kernels": [gram_record, sweep_record, pass3_record]})
+    return gram_record, sweep_record, pass3_record
 
 
-def phase_fit_1m(dev: torch.device) -> tuple[dict, dict, dict]:
+def phase_fit_1m(dev: torch.device) -> tuple[dict, dict, dict, dict]:
     X, y = make_dataset(1 << 20, D_IN, seed=0)
     X_test, y_test = make_dataset(65_536, D_IN, seed=1)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -949,9 +1009,9 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict, dict]:
         model = NeoLSSVM(device=dev).fit(X, y)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches}
-        paths = {"fused_augmented_gram": dict(gram_mod.path_launches),
-                 "fused_loo_sweep": dict(sweep_mod.path_launches)}
+        launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches,
+                    "fused_pass3": pass3_mod.launches}
+        paths = _launches_by_path()
     peak_bytes = torch.cuda.max_memory_allocated(dev)
     check(all(v >= 1 for v in launches.values()), f"the 1M fit did not launch every kernel: {launches}")
     check(
@@ -980,16 +1040,16 @@ def phase_fit_1m(dev: torch.device) -> tuple[dict, dict, dict]:
         "test_r2": r2_score(y_test, yhat),
     })
     emit({"phase": "fit_1m_draws", **hold_to_anchor(X, y, dev, model.loo_score_, LOO_R2_1M_DEVICE, "fit_1m")})
-    gram_record, sweep_record = phase_main_path_kernels(calls)
-    gram_record["launches"] = launches["fused_augmented_gram"]
-    sweep_record["launches"] = launches["fused_loo_sweep"]
+    gram_record, sweep_record, pass3_record = phase_main_path_kernels(calls)
+    for record in (gram_record, sweep_record, pass3_record):
+        record["launches"] = launches[record["name"]]
     high = {"gammas": model.γs_, "loo_errors": model.loo_errors_γs_, "loo_score": model.loo_score_, "gamma": model.γ_}
     del calls, model
     torch.cuda.empty_cache()
     emit({"phase": "fit_1m_breakdown", **breakdown_1m(X, y, dev)})
     phase_fit_1m_host(X, y, X_test, y_test, dev)
     phase_pretransform(X, y, dev)
-    return gram_record, sweep_record, high
+    return gram_record, sweep_record, pass3_record, high
 
 
 def phase_fit_1m_f64(dev: torch.device) -> tuple[dict, dict]:
@@ -1282,14 +1342,15 @@ def phase_nan_on_card(dev: torch.device) -> None:
 
 def reset_launches() -> None:
     """Set every kernel's launch counts to 0."""
-    for mod in (gram_mod, sweep_mod):
+    for mod in (gram_mod, sweep_mod, pass3_mod):
         mod.launches = 0
         mod.path_launches = dict.fromkeys(mod.path_launches, 0)
 
 
 def read_launches(tag: str) -> dict:
     """The kernels' launch counts since ``reset_launches``; every kernel must have run."""
-    launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches}
+    launches = {"fused_augmented_gram": gram_mod.launches, "fused_loo_sweep": sweep_mod.launches,
+                "fused_pass3": pass3_mod.launches}
     check(all(v >= 1 for v in launches.values()), f"{tag} did not launch every kernel: {launches}")
     return launches
 
@@ -1551,14 +1612,16 @@ def note(what: str) -> None:
 
 
 def _launches_by_path() -> dict:
-    return {"fused_augmented_gram": dict(gram_mod.path_launches), "fused_loo_sweep": dict(sweep_mod.path_launches)}
+    return {"fused_augmented_gram": dict(gram_mod.path_launches), "fused_loo_sweep": dict(sweep_mod.path_launches),
+            "fused_pass3": dict(pass3_mod.path_launches)}
 
 
 def _one_launch_each(path: str, sweep_path: str | None = None) -> dict:
     """One launch of each kernel, K1 on ``path`` and K2 on ``sweep_path`` (default: the
-    same path), and none on any other path."""
-    paths = {"fused_augmented_gram": path, "fused_loo_sweep": sweep_path or path}
-    mods = {"fused_augmented_gram": gram_mod, "fused_loo_sweep": sweep_mod}
+    same path), and none on any other path. K3 has the 3×TF32 path alone: one launch when K1
+    takes it, none when the fit is float64."""
+    paths = {"fused_augmented_gram": path, "fused_loo_sweep": sweep_path or path, "fused_pass3": path}
+    mods = {"fused_augmented_gram": gram_mod, "fused_loo_sweep": sweep_mod, "fused_pass3": pass3_mod}
     return {name: {p: int(p == paths[name]) for p in mods[name].path_launches} for name in mods}
 
 
@@ -1873,7 +1936,7 @@ def phase_mesh(dev: torch.device) -> dict[str, list[int]]:
                            "single_fit_s": single_fit_s, "single_gpu_peak_memory_bytes": single_peak,
                            "note": "four ranks share one card and sum through the host: the times say nothing of scaling"}
     estimator_launches = {name: [r["estimator"]["launches_by_path"][name][_build.PATH_TF32] for r in ranks]
-                          for name in ("fused_augmented_gram", "fused_loo_sweep")}
+                          for name in ("fused_augmented_gram", "fused_loo_sweep", "fused_pass3")}
     estimator_launches["fused_loo_sweep_one_pass"] = [r["f32_fast"]["launches_by_path"]["fused_loo_sweep"][_build.PATH_TF32_1]
                                                       for r in ranks]
     for name in ("fused_augmented_gram", "fused_loo_sweep"):  # (a) in f64, 131,072 rows
@@ -1935,7 +1998,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ragged(dev)
     phase_parity_small(dev)
-    gram_record, sweep_record, high_1m = phase_fit_1m(dev)
+    gram_record, sweep_record, pass3_record, high_1m = phase_fit_1m(dev)
     fast_record = phase_fast(dev, high_1m)
     gram64_record, sweep64_record = phase_fit_1m_f64(dev)
     phase_fit_262k(dev)
@@ -1950,7 +2013,7 @@ def main() -> int:
     del classifier, regressor
     phase_tensor_io(X, y, dev)
     mesh_launches = phase_mesh(dev)
-    kernels = [gram_record, sweep_record, fast_record, gram64_record, sweep64_record]
+    kernels = [gram_record, sweep_record, pass3_record, fast_record, gram64_record, sweep64_record]
     for kernel in kernels:
         kernel["mesh_launches_per_rank"] = mesh_launches[kernel["name"]]
     emit({"kernels": kernels})

@@ -17,7 +17,8 @@ product WᵀS²W, the eigh is a real symmetric 2M×2M decomposition, and the γ-
 
 Every function takes tensors on one device and computes there: the tensors' device, not
 a switch, decides whether the streaming solver runs the CUDA kernels
-(``ops/cuda/gram.py``, ``ops/cuda/sweep.py``) or their plain PyTorch versions.
+(``ops/cuda/gram.py``, ``ops/cuda/sweep.py``; ``ops/cuda/pass3.py`` for float32 rows) or
+their plain PyTorch versions.
 
 Every public function runs its float32 products in IEEE float32 (``utils/precision.py``),
 as the JAX functions' ``precision=HIGHEST`` default, whatever the caller set for its own
@@ -32,7 +33,9 @@ from typing import Any, Literal, NamedTuple
 import numpy as np
 import torch
 
+from neo_ls_svm_torch.ops.cuda._build import PATH_TF32
 from neo_ls_svm_torch.ops.cuda.gram import fused_augmented_gram, gram_plain, w_basis_from_augmented
+from neo_ls_svm_torch.ops.cuda.pass3 import fused_pass3, pass3_plain
 from neo_ls_svm_torch.ops.cuda.sweep import fused_loo_sweep
 from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 from neo_ls_svm_torch.utils.profiling import span
@@ -473,8 +476,10 @@ def primal_fit_streaming(
     of materialising the n×2M feature matrix. Passes 1 and 2 are the fused kernels K1
     (``fused_augmented_gram``, only with the identity complexity matrix, as the JAX
     package routes it) and K2 (``fused_loo_sweep``); on CPU tensors both run their plain
-    PyTorch versions. Callers pad rows to a multiple of ``row_chunk`` with zero sample
-    weights and pass the true row count via ``num_samples``.
+    PyTorch versions. Pass 3 is K3 (``fused_pass3``) for float32 rows on a CUDA device and
+    ``pass3_plain`` otherwise; its span ``neo.solve.pass3`` says which (``path``). Callers
+    pad rows to a multiple of ``row_chunk`` with zero sample weights and pass the true row
+    count via ``num_samples``.
 
     ``row_sum`` is :func:`primal_fit`'s hook, applied to the weight total, the augmented
     Gram, the γ-sweep's sums and the LOO score's moments
@@ -511,6 +516,7 @@ def primal_fit_streaming(
 
         inv_c0 = _inv_c0_scale(n, M, dtype, device)
         inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
+        inv_c0_kernels = float(n) * M if C_emb is None else 1.0  # inv_c0's value, for K2 and K3
         with span("neo.solve.eigh", device=device):
             lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
             k = Qs.T @ b_vec
@@ -529,7 +535,7 @@ def primal_fit_streaming(
                 r_all,
                 k,
                 is_classifier=is_classifier,
-                inv_c0=float(n) * M if C_emb is None else 1.0,
+                inv_c0=inv_c0_kernels,
                 precision=sweep_precision,
             )))
             optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
@@ -539,27 +545,24 @@ def primal_fit_streaming(
         L = torch.linalg.cholesky(_regularised_gram(B, C_emb, gamma_opt, inv_c0_id))
         beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
 
-        # Pass 3: per-row LOO statistics and residuals at the optimum.
-        with span("neo.solve.pass3", device=device):
+        # Pass 3: per-row LOO statistics and residuals at the optimum, K3 for float32 rows on
+        # a CUDA device (as the JAX package's HIGHEST: 3×TF32 under either sweep_precision).
+        on_kernel = device.type == "cuda" and dtype == torch.float32
+        with span("neo.solve.pass3", device=device, path=PATH_TF32 if on_kernel else "plain"):
             r_opt = 1.0 / (gamma_opt + lam)
             kr_opt = k * r_opt
             beta_j = sign * beta_emb
-            e_raw_c, lev_c, sig2_c, resid_c = [], [], [], []
-            for start in range(0, n_pad, row_chunk):
-                rows = slice(start, start + row_chunk)
-                W_b = _features_real_pair(X[rows], M_map, b_map)
-                Gu_b = W_b @ Qs
-                num = inv_c0 * (Gu_b @ kr_opt)
-                sig2 = inv_c0 * ((Gu_b * Gu_b) @ r_opt)
-                lev = s2[rows] * sig2
-                e_raw_c.append((num - y[rows]) / (1.0 - lev))
-                lev_c.append(lev)
-                sig2_c.append(sig2)
-                resid_c.append(W_b @ beta_j - y[rows])
-            e_raw = torch.cat(e_raw_c)
-            lev_opt = torch.cat(lev_c)
-            sigma2 = torch.cat(sig2_c)
-            residuals = _clip_classifier_residuals(torch.cat(resid_c), y, is_classifier)
+            if on_kernel:
+                num, sigma2, resid = fused_pass3(
+                    X, M_map, b_map, y, Qs.contiguous(), kr_opt, r_opt, beta_j, inv_c0=inv_c0_kernels
+                )
+            else:
+                num, sigma2, resid = pass3_plain(
+                    X, M_map, b_map, y, Qs, kr_opt, r_opt, beta_j, inv_c0=inv_c0, chunk_rows=row_chunk
+                )
+            lev_opt = s2 * sigma2
+            e_raw = (num - y) / (1.0 - lev_opt)
+            residuals = _clip_classifier_residuals(resid, y, is_classifier)
             e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
             loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
             loo_sigma2 = sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)

@@ -35,7 +35,7 @@ _NVCC_FLAGS = (
 _LIB_NAME = "libneo_ls_svm_kernels.so"
 
 # The kernel paths of the wrappers: float32 runs the 3×TF32 tensor-core kernels
-# (csrc/gram.cu, csrc/sweep.cu), and K2 under precision="fast" the one-pass kernels
+# (csrc/gram.cu, csrc/sweep.cu, csrc/pass3.cu), and K2 under precision="fast" the one-pass kernels
 # (csrc/sweep_1xtf32.cu); float64 runs the FP64 tensor-core (DMMA) ones (csrc/*_fp64.cu).
 PATH_TF32 = "3xtf32-wgmma"
 PATH_TF32_1 = "1xtf32-wgmma"
@@ -58,6 +58,8 @@ _SIGNATURES = {
     # (X, M, b, y, s, s2, Qs, r_all, k, err, obj, workspace, n, d, D, G, chunk,
     #  is_classifier, inv_sqrt_d, inv_c0, stream)
     "neo_sweep_f64": [_P] * 12 + [_I64] + [_I32] * 5 + [ctypes.c_double, ctypes.c_double, _P],
+    # (X, M, b, y, QB, kr, r, num, sig2, res, workspace, n, d, D, chunk, inv_sqrt_d, inv_c0, stream)
+    "neo_pass3_f32": [_P] * 11 + [_I64, _I32, _I32, _I32, ctypes.c_float, ctypes.c_float, _P],
     "neo_error_string": [_I32],
 }
 _RESTYPES = {"neo_error_string": ctypes.c_char_p}

@@ -38,6 +38,8 @@ from neo_ls_svm_tpu.ops.pallas.gram import (
 )
 from neo_ls_svm_tpu.ops.pallas.sweep import fused_loo_sweep
 
+from ._tf32_products import tf32_product as _product
+
 RTOL = 1e-10
 N, d, D = 512, 8, 64
 
@@ -142,39 +144,6 @@ def test_wrappers_reject_other_devices() -> None:
 # The f32 limits of chip_smoke.py: per-entry Gram error max|ΔG_ij|/√(G_ii·G_jj), and the
 # sweep's max relative error.
 GRAM_TOL_F32, SWEEP_TOL_F32 = 2e-6, 1e-4
-
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
-    as ``cvt.rna.tf32.f32``: half of the 13 dropped bits' range added, then cleared."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _product(A: torch.Tensor, B: torch.Tensor, passes: int = 3, run_blocks: int | None = None) -> torch.Tensor:
-    """A·B as the kernels' product loops compute it, on hi = tf32(v), lo = tf32(v − hi):
-    the contraction in runs of ``run_blocks`` k-blocks of 32, each run lo·hi + hi·lo + hi·hi
-    (hi·hi alone for ``passes=1``) in float32, the runs added into a float32 sum in order.
-    By default a run is what each loop takes: one k-block under 3×TF32
-    (``csrc/gemm_sm90.cuh``), the whole contraction under one pass
-    (``csrc/gemm_sm90_1xtf32.cuh``)."""
-    pad = (-A.shape[1]) % 32
-    A = torch.nn.functional.pad(A, (0, pad))
-    B = torch.nn.functional.pad(B, (0, 0, 0, pad))
-    blocks = A.shape[1] // 32
-    if run_blocks is None:
-        run_blocks = 1 if passes == 3 else blocks
-    A_hi = _tf32(A)
-    B_hi = _tf32(B)
-    A_lo = _tf32(A - A_hi)
-    B_lo = _tf32(B - B_hi)
-    total = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32)
-    for k0 in range(0, A.shape[1], 32 * run_blocks):
-        ks = slice(k0, k0 + 32 * run_blocks)
-        run = A_hi[:, ks] @ B_hi[ks]
-        if passes == 3:
-            run = A_lo[:, ks] @ B_hi[ks] + A_hi[:, ks] @ B_lo[ks] + run
-        total += run
-    return total
 
 
 def _features32(ops: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
