@@ -154,8 +154,7 @@ from neo_ls_svm_torch.models import estimator as est
 from neo_ls_svm_torch.models.isotonic import _pav_python, pool_adjacent_violators
 from neo_ls_svm_torch.models import primal as primal_mod
 from neo_ls_svm_torch.models.primal import (
-    _eigendecompose,
-    _sign_vector,
+    eigenbasis,
     embed_from_gram_blocks,
     gamma_grid,
     primal_fit_streaming,
@@ -165,6 +164,7 @@ from neo_ls_svm_torch.ops.cuda import gram as gram_mod
 from neo_ls_svm_torch.ops import affine as affine_mod
 from neo_ls_svm_torch.ops.cuda import pass3 as pass3_mod
 from neo_ls_svm_torch.ops.cuda import sweep as sweep_mod
+from neo_ls_svm_torch.ops.loo import features_real_pair
 from neo_ls_svm_torch.ops.orff import OrthogonalRandomFourierFeatures
 from neo_ls_svm_torch.ops.pretransform_device import (
     DEVICE_PRETRANSFORM_BINS,
@@ -576,13 +576,12 @@ def _sweep_inputs(G: torch.Tensor, n: int, D: int, num_gammas: int) -> dict:
     dev, dtype = G.device, G.dtype
     G_W, b_vec = gram_mod.w_basis_from_augmented(G, D)
     M = D + 1
-    inv_c0 = torch.tensor(float(n * M), dtype=dtype, device=dev)
-    lam, Qs, _ = _eigendecompose(embed_from_gram_blocks(G_W, M), None, inv_c0, _sign_vector(M, dtype, dev))
+    basis = eigenbasis(embed_from_gram_blocks(G_W, M), b_vec, None, n)
     gammas = torch.from_numpy(gamma_grid(np.float64, num=num_gammas)).to(dev, dtype)
     return {
-        "Qs": Qs.contiguous(),
-        "r_all": (1.0 / (gammas[None, :] + lam[:, None])).contiguous(),
-        "k": (Qs.T @ b_vec).contiguous(),
+        "Qs": basis.Qs.contiguous(),
+        "r_all": (1.0 / (gammas[None, :] + basis.lam[:, None])).contiguous(),
+        "k": basis.k.contiguous(),
         "inv_c0": float(n * M),
     }
 
@@ -931,7 +930,7 @@ def pass3_timings(args: list[torch.Tensor], kw: dict) -> dict:
     D = M_map.shape[1]
     M2 = 2 * D + 2
     with matmul_precision("ieee"):
-        W = primal_mod._features_real_pair(X, M_map, b_map)
+        W = features_real_pair(X, M_map, b_map)
 
     def library():
         with matmul_precision("ieee"):

@@ -17,8 +17,8 @@ products are cuBLAS's, in IEEE float32 or float64 whatever the caller set
 
 import torch
 
-from neo_ls_svm_torch.models.primal import _clip_classifier_residuals
 from neo_ls_svm_torch.ops.kernels import rbf_kernel, squared_distances
+from neo_ls_svm_torch.ops.loo import clip_classifier_residuals
 from neo_ls_svm_torch.utils.precision import matmul_precision
 
 RBF_GAMMA = 0.5  # Fixed kernel width; the metric is learned upstream (ref :257,261).
@@ -65,7 +65,7 @@ def dual_fit(
     hdiag = torch.where(hdiag == 0, torch.full_like(hdiag, eps), hdiag)
     alpha_loo = alpha_basis @ r  # α̂(γ) columns, n × G
     yhat_loo = (-cross / hdiag) * alpha_loo + (F_od @ alpha_basis) @ r
-    loo_residuals = _clip_classifier_residuals(yhat_loo - y[:, None], y, is_classifier)
+    loo_residuals = clip_classifier_residuals(yhat_loo - y[:, None], y, is_classifier)
     abs_e = loo_residuals.abs()
     loo_errors_gs = s @ abs_e
     if is_classifier:
@@ -87,7 +87,7 @@ def dual_fit(
     # Re-solve (γρ·diag(sn⁻²) + K)α̂ = y via Cholesky for accuracy (ref :313-314).
     L = torch.linalg.cholesky(K + torch.diag(gamma_opt * rho / (sn * sn)))
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
-    residuals = _clip_classifier_residuals(F @ alpha - y, y, is_classifier)
+    residuals = clip_classifier_residuals(F @ alpha - y, y, is_classifier)
 
     # Predictive variance σ²(x) = 1 - k(x,X)(LLᵀ)⁻¹k(X,x) on the train points (ref :321-323).
     sigma2 = 1.0 - (K_rbf * torch.cholesky_solve(K_rbf.T, L).T).sum(dim=1)

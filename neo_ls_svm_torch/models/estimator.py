@@ -587,23 +587,9 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         C_emb = None
         pt: dict[str, torch.Tensor] = {}
         if use_device_pt:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(self._device_pt_seed())
-            affine = fm.affine_feature_map
+            generator, settings = self._device_pt_settings(fm, is_classifier, device)
             pt = device_pre_transform(
-                X_d,
-                y_d,
-                s_d,
-                generator,
-                num_bins=2 if is_classifier else DEVICE_PRETRANSFORM_BINS,
-                num_features=num_features,
-                edge_sample_size=int(getattr(affine, "edge_sample_size", 384)),
-                edge_search_multiplier=int(getattr(affine, "edge_search_multiplier", 4)),
-                rank_threshold=float(getattr(affine, "rank_threshold", 2e-2)),
-                is_classifier=is_classifier,
-                # A plain RandomFourierFeatures map keeps its configured i.i.d. Gaussian
-                # draw; only the orthogonal variant gets the blockwise QR + χ rescale.
-                orthogonal=isinstance(fm, OrthogonalRandomFourierFeatures),
+                X_d, y_d, s_d, generator, num_features=num_features, is_classifier=is_classifier, **settings
             )
             M_d, b_d = pt.pop("M"), pt.pop("b")
         else:
@@ -669,9 +655,8 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         num_features = int(getattr(fm, "num_features", 512))
         dtype = y_.dtype
         if use_device_pt:
-            generator = torch.Generator(device=device)  # drawn from on the first rank only
-            generator.manual_seed(self._device_pt_seed())
-            affine = fm.affine_feature_map
+            # The generator is drawn from on the first rank only.
+            generator, settings = self._device_pt_settings(fm, is_classifier, device)
             result = sharded_primal_fit_device_pt(
                 self.mesh_,
                 X,
@@ -680,15 +665,11 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
                 generator,
                 self.γs_,
                 is_classifier=is_classifier,
-                num_bins=2 if is_classifier else DEVICE_PRETRANSFORM_BINS,
                 num_features=num_features,
-                edge_sample_size=int(getattr(affine, "edge_sample_size", 384)),
-                edge_search_multiplier=int(getattr(affine, "edge_search_multiplier", 4)),
-                rank_threshold=float(getattr(affine, "rank_threshold", 2e-2)),
-                orthogonal=isinstance(fm, OrthogonalRandomFourierFeatures),
                 stream=stream,
                 row_chunk=STREAMING_ROW_CHUNK,
                 sweep_precision=self.precision,
+                **settings,
             )
             return self._keep_primal_state(result, result["pt_M"], result["pt_b"], None, n_rows, num_features)
         # Every rank runs the host pre-transform: NumPy, the same bits on each.
@@ -711,12 +692,26 @@ class NeoLSSVM(ConformalMixin, BaseEstimator):
         )
         return self._keep_primal_state(result, M_d, b_d, C_emb, n_rows, num_features)
 
-    def _device_pt_seed(self) -> int:
-        """The generator seed of the device pre-transform, from ``random_state``."""
+    def _device_pt_settings(
+        self, fm: RandomFourierFeatures, is_classifier: bool, device: torch.device
+    ) -> tuple[torch.Generator, dict[str, Any]]:
+        """The device pre-transform's generator on ``device``, seeded from
+        ``random_state``, and its settings for the feature map ``fm``: the same for one
+        device and for a mesh."""
         rs = self.random_state
-        if isinstance(rs, (int, np.integer)):
-            return int(rs)
-        return int(check_random_state(rs).randint(0, 2**31 - 1))
+        seed = int(rs) if isinstance(rs, (int, np.integer)) else int(check_random_state(rs).randint(0, 2**31 - 1))
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+        affine = fm.affine_feature_map
+        return generator, {
+            "num_bins": 2 if is_classifier else DEVICE_PRETRANSFORM_BINS,
+            "edge_sample_size": int(getattr(affine, "edge_sample_size", 384)),
+            "edge_search_multiplier": int(getattr(affine, "edge_search_multiplier", 4)),
+            "rank_threshold": float(getattr(affine, "rank_threshold", 2e-2)),
+            # A plain RandomFourierFeatures map keeps its configured i.i.d. Gaussian draw;
+            # only the orthogonal variant gets the blockwise QR + χ rescale.
+            "orthogonal": isinstance(fm, OrthogonalRandomFourierFeatures),
+        }
 
     def _fit_dual(
         self,

@@ -37,6 +37,12 @@ from neo_ls_svm_torch.ops.cuda._build import PATH_TF32
 from neo_ls_svm_torch.ops.cuda.gram import fused_augmented_gram, gram_plain, w_basis_from_augmented
 from neo_ls_svm_torch.ops.cuda.pass3 import fused_pass3, pass3_plain
 from neo_ls_svm_torch.ops.cuda.sweep import fused_loo_sweep
+# Under the names they had when defined here: the tests' frozen copies of the solvers
+# (``tests/test_torch_inmemory.py``, ``tests/test_torch_pass3.py``) still reach them so.
+from neo_ls_svm_torch.ops.loo import clip_classifier_residuals as _clip_classifier_residuals
+from neo_ls_svm_torch.ops.loo import features_real_pair as _features_real_pair
+from neo_ls_svm_torch.ops.loo import identity as _identity
+from neo_ls_svm_torch.ops.loo import sweep_objective as _sweep_objective
 from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 from neo_ls_svm_torch.utils.profiling import span
 
@@ -58,21 +64,6 @@ def trim_per_row(result: dict, num_samples: int) -> dict:
 def gamma_grid(dtype: Any, num: int = 1024, lo: float = 1e-6, hi: float = 20.0) -> np.ndarray:
     """The γ grid the LOO sweep evaluates (ref ``_neo_ls_svm.py:146,270``)."""
     return np.logspace(np.log10(lo), np.log10(hi), num, dtype=dtype)
-
-
-def _features_real_pair(X: torch.Tensor, M_map: torch.Tensor, b_map: torch.Tensor) -> torch.Tensor:
-    """Build W = [cos U/√D, 1 | sin U/√D, 0] from the folded affine map U = X@M + b.
-
-    The two M-column halves are the real part P and minus-the-imaginary part (−N) of
-    φ = exp(-1j·U)/√D with its bias column: P = [cos U/√D, 1], N = [−sin U/√D, 0].
-    """
-    n = X.shape[0]
-    D = M_map.shape[1]
-    U = X @ M_map + b_map
-    inv_sqrt_D = 1.0 / torch.sqrt(torch.tensor(D, dtype=X.dtype, device=X.device))
-    ones = torch.ones((n, 1), dtype=X.dtype, device=X.device)
-    zeros = torch.zeros((n, 1), dtype=X.dtype, device=X.device)
-    return torch.cat([torch.cos(U) * inv_sqrt_D, ones, torch.sin(U) * inv_sqrt_D, zeros], dim=1)
 
 
 def embed_from_gram_blocks(G: torch.Tensor, M: int) -> torch.Tensor:
@@ -116,32 +107,12 @@ def _inv_c0_scale(n: "torch.Tensor | int", M: int, dtype: torch.dtype, device: A
     """1/c₀ = n·M, computed in floating point.
 
     Cast to the float dtype BEFORE the multiply: as integers n·M would wrap int32 once it
-    exceeds 2³¹ (n ≈ 4.2M rows at M = 513).
+    exceeds 2³¹ (n ≈ 4.2M rows at M = 513). A host n is filled on the device, with no
+    copy for the stream to wait on.
     """
     if isinstance(n, torch.Tensor):
         return n.to(dtype) * torch.tensor(M, dtype=dtype, device=n.device)
-    return torch.tensor(float(n) * M, dtype=dtype, device=device)
-
-
-def _clip_classifier_residuals(e: torch.Tensor, y: torch.Tensor, is_classifier: bool) -> torch.Tensor:
-    """Zero the residuals of confidently-correct classifications (ref ``:153-155``)."""
-    if not is_classifier:
-        return e
-    y_b = y if e.ndim == 1 else y[:, None]
-    return torch.where(((y_b > 0) & (e > 0)) | ((y_b < 0) & (e < 0)), torch.zeros_like(e), e)
-
-
-def _sweep_objective(
-    e: torch.Tensor, s: torch.Tensor, is_classifier: bool
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Weighted-abs-LOO error and the γ-selection objective (ref ``:158-165``)."""
-    abs_e = torch.abs(e)
-    loo_err = s @ abs_e
-    if is_classifier:
-        objective = s @ (abs_e >= 1).to(e.dtype) + s @ torch.clamp(abs_e - 1, min=0.0) + loo_err
-    else:
-        objective = loo_err
-    return loo_err, objective
+    return torch.full((), float(n) * M, dtype=dtype, device=device)
 
 
 def _eigendecompose(
@@ -184,10 +155,6 @@ def _regularised_gram(
     return B + gamma_opt * C_emb
 
 
-def _identity(t: torch.Tensor) -> torch.Tensor:
-    return t
-
-
 def _loo_score(
     y: torch.Tensor,
     s: torch.Tensor,
@@ -204,6 +171,83 @@ def _loo_score(
         return row_sum(s @ (torch.sign(y + e_raw) == y).to(y.dtype))
     y_mean = row_sum(s @ y)
     return 1.0 - row_sum(s @ (e_raw * e_raw)) / row_sum(s @ ((y - y_mean) * (y - y_mean)))
+
+
+class Eigenbasis(NamedTuple):
+    """The head of every primal fit (:func:`eigenbasis`): the eigenvalues λ, the
+    sign-folded eigenbasis Qs, k = QsᵀWᵀS²y, the resolvent scale ``inv_c0`` (1/c₀, or 1 on
+    the GEVD path), the identity-C scale ``inv_c0_id`` (1/c₀ on either path, for the
+    re-solve) and the sign vector of the embedding."""
+
+    lam: torch.Tensor
+    Qs: torch.Tensor
+    k: torch.Tensor
+    inv_c0: torch.Tensor
+    inv_c0_id: torch.Tensor
+    sign: torch.Tensor
+
+
+def eigenbasis(
+    B: torch.Tensor, b_vec: torch.Tensor, C_emb: torch.Tensor | None, n: "torch.Tensor | int"
+) -> Eigenbasis:
+    """The eigenbasis of the embedded Gram ``B`` against the complexity matrix ``C_emb``
+    (None: the shipped c₀·I, c₀ = 1/(n·M), ref :117-118) and k from ``b_vec`` = WᵀS²y,
+    for n rows. Every primal fit runs it once on its completed sums."""
+    M = B.shape[0] // 2
+    inv_c0_id = _inv_c0_scale(n, M, B.dtype, B.device)
+    sign = _sign_vector(M, B.dtype, B.device)
+    lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0_id, sign)
+    return Eigenbasis(lam, Qs, Qs.T @ b_vec, inv_c0, inv_c0_id, sign)
+
+
+def resolve_beta(
+    B: torch.Tensor, C_emb: torch.Tensor | None, b_vec: torch.Tensor, basis: Eigenbasis, gamma: torch.Tensor
+) -> torch.Tensor:
+    """β̂_emb at ``gamma``: (γC + A)β̂ = φᴴS²y re-solved by Cholesky for accuracy (ref
+    :177-178), in embedding space: (γ·C + B) β̂_emb = Zᵀ S² y."""
+    L = torch.linalg.cholesky(_regularised_gram(B, C_emb, gamma, basis.inv_c0_id))
+    return torch.cholesky_solve((basis.sign * b_vec)[:, None], L)[:, 0]
+
+
+def statistics_at_optimum(
+    num: torch.Tensor,
+    sigma2: torch.Tensor,
+    resid: torch.Tensor,
+    y: torch.Tensor,
+    s: torch.Tensor,
+    s2: torch.Tensor,
+    loo_errors: torch.Tensor,
+    optimum: torch.Tensor,
+    gamma: torch.Tensor,
+    basis: Eigenbasis,
+    beta_emb: torch.Tensor,
+    *,
+    is_classifier: bool,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] = _identity,
+) -> dict[str, torch.Tensor]:
+    """A primal fit's result, from the per-row statistics at the chosen γ: ``num`` = φβ̂(γ)
+    and ``sigma2`` = σ², each scaled by the resolvent scale, and ``resid`` = W·(sign∘β̂) − y,
+    the training residual before its clip. The LOO residuals, their leverage h = s²σ², the
+    LOO score (its moments completed by ``row_sum``, :func:`primal_fit`'s hook) and the
+    Bayesian LOO predictive std with its Sherman–Morrison correction (ref :183-187)."""
+    lev_opt = s2 * sigma2
+    e_raw = (num - y) / (1.0 - lev_opt)
+    e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
+    return {
+        "beta_emb": beta_emb,
+        "gamma": gamma,
+        "optimum_index": optimum,
+        "lam": basis.lam,
+        "Qs": basis.Qs,
+        "loo_errors_gammas": loo_errors,
+        "loo_residuals": e_clipped,
+        "loo_yhat": y + e_clipped,
+        "loo_leverage": lev_opt,
+        "loo_error": loo_errors[optimum],
+        "loo_score": _loo_score(y, s, e_raw, is_classifier, row_sum),
+        "loo_std": torch.sqrt(sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)),
+        "residuals": _clip_classifier_residuals(resid, y, is_classifier),
+    }
 
 
 class _Swept(NamedTuple):
@@ -261,62 +305,30 @@ def _optimum_in_memory(
     W: torch.Tensor,
     B: torch.Tensor,
     C_emb: torch.Tensor | None,
+    b_vec: torch.Tensor,
+    basis: Eigenbasis,
     swept: _Swept,
     y: torch.Tensor,
     s: torch.Tensor,
     s2: torch.Tensor,
     gammas: torch.Tensor,
-    lam: torch.Tensor,
-    Qs: torch.Tensor,
-    b_vec: torch.Tensor,
-    sign: torch.Tensor,
-    inv_c0: torch.Tensor,
-    inv_c0_id: torch.Tensor,
     *,
     is_classifier: bool,
     row_sum: Callable[[torch.Tensor], torch.Tensor],
 ) -> dict[str, torch.Tensor]:
-    """The γ at the objective's first minimum, its per-row LOO statistics from the sweep's
-    products, the Cholesky re-solve of β̂ there and the training residuals: the result of
-    :func:`primal_fit`."""
+    """The γ at the objective's first minimum, its per-row statistics from the sweep's
+    products (one resolvent column), the re-solve of β̂ there and the training residuals:
+    the result of :func:`primal_fit`."""
     optimum = torch.argmin(swept.objective)  # the FIRST minimum, as jnp.argmin
     gamma_opt = gammas[optimum]
-
-    # Recompute the optimum's full LOO vectors (cheap: one resolvent column).
-    r_opt = 1.0 / (gamma_opt + lam)
-    sigma2 = inv_c0 * (swept.Gu2 @ r_opt)
-    phi_beta_opt = inv_c0 * (swept.Gu_k @ r_opt)
-    lev_opt = s2 * sigma2
-    e_raw = (phi_beta_opt - y) / (1.0 - lev_opt)
-    e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
-    loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
-
-    # Re-solve (γC + A)β̂ = φᴴS²y at the optimum via Cholesky for accuracy (ref :177-178),
-    # in embedding space: (γ·C + B) β̂_emb = Zᵀ S² y.
-    L = torch.linalg.cholesky(_regularised_gram(B, C_emb, gamma_opt, inv_c0_id))
-    beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
-    # Z @ β̂_emb = W @ (J β̂_emb).
-    residuals = _clip_classifier_residuals(W @ (sign * beta_emb) - y, y, is_classifier)
-
-    # Bayesian LOO predictive variance via the eigenbasis plus the Sherman–Morrison
-    # leave-one-out correction (ref :183-187).
-    loo_sigma2 = sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)
-
-    return {
-        "beta_emb": beta_emb,
-        "gamma": gamma_opt,
-        "optimum_index": optimum,
-        "lam": lam,
-        "Qs": Qs,
-        "loo_errors_gammas": swept.loo_errors,
-        "loo_residuals": e_clipped,
-        "loo_yhat": y + e_clipped,
-        "loo_leverage": lev_opt,
-        "loo_error": swept.loo_errors[optimum],
-        "loo_score": loo_score,
-        "loo_std": torch.sqrt(loo_sigma2),
-        "residuals": residuals,
-    }
+    r_opt = 1.0 / (gamma_opt + basis.lam)
+    sigma2 = basis.inv_c0 * (swept.Gu2 @ r_opt)
+    num = basis.inv_c0 * (swept.Gu_k @ r_opt)
+    beta_emb = resolve_beta(B, C_emb, b_vec, basis, gamma_opt)
+    return statistics_at_optimum(
+        num, sigma2, W @ (basis.sign * beta_emb) - y, y, s, s2, swept.loo_errors, optimum, gamma_opt, basis,
+        beta_emb, is_classifier=is_classifier, row_sum=row_sum,
+    )
 
 
 @matmul_precision("ieee")
@@ -367,7 +379,7 @@ def primal_fit(
     ``neo.solve.optimum`` (:func:`_optimum_in_memory`).
     """
     n = X.shape[0] if num_samples is None else num_samples
-    dtype, device = X.dtype, X.device
+    device = X.device
     if working_set_bytes is None:
         working_set_bytes = _primal_working_set_bytes(X.shape[0], M_map.shape[1], X.element_size())
     with span("neo.solve", device=device, route="inmemory", working_set_bytes=working_set_bytes):
@@ -377,28 +389,19 @@ def primal_fit(
         with span("neo.solve.gram", device=device):
             W = _features_real_pair(X, M_map, b_map)
             B = row_sum(_embedding_gram(W, s2))
-        M2 = W.shape[1]
-        M = M2 // 2
-        # c₀: the normalised complexity matrix is c₀·I with c₀ = 1/(n·M) (ref :117-118 with
-        # the shipped identity complexity matrix; φ.size = n·M).
-        inv_c0 = _inv_c0_scale(n, M, dtype, device)
-        inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
-        sign = _sign_vector(M, dtype, device)
         with span("neo.solve.eigh", device=device):
-            lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
             b_vec = row_sum(W.T @ (s2 * y))  # Wᵀ S² y
-            k = Qs.T @ b_vec  # QᵀZᵀS²y
+            basis = eigenbasis(B, b_vec, C_emb, n)
         chunks = -(-gammas.shape[0] // gamma_chunk)
         with span("neo.solve.sweep", device=device, gamma_chunks=chunks):
             swept = _sweep_in_memory(
-                W, Qs, k, lam, y, s, s2, gammas, inv_c0,
+                W, basis.Qs, basis.k, basis.lam, y, s, s2, gammas, basis.inv_c0,
                 is_classifier=is_classifier, gamma_chunk=gamma_chunk, sweep_precision=sweep_precision,
                 row_sum=row_sum,
             )
         with span("neo.solve.optimum", device=device):
             result = _optimum_in_memory(
-                W, B, C_emb, swept, y, s, s2, gammas, lam, Qs, b_vec, sign, inv_c0, inv_c0_id,
-                is_classifier=is_classifier, row_sum=row_sum,
+                W, B, C_emb, b_vec, basis, swept, y, s, s2, gammas, is_classifier=is_classifier, row_sum=row_sum
             )
     return result
 
@@ -499,10 +502,8 @@ def primal_fit_streaming(
             raise ValueError(msg)
         D = M_map.shape[1]
         M = D + 1
-        M2 = 2 * M
         s = sample_weight / row_sum(torch.sum(sample_weight))
         s2 = s * s
-        sign = _sign_vector(M, dtype, device)
 
         # Pass 1: one augmented Gram holds every second-order statistic at once —
         # Y = [cos | sin | 1 | y] so YᵀS²Y contains the Gram, the rhs WᵀS²y, and yᵀS²y.
@@ -513,17 +514,13 @@ def primal_fit_streaming(
                 G_aug = gram_plain(X, M_map, b_map, s2, y, chunk_rows=row_chunk)
             G, b_vec = w_basis_from_augmented(row_sum(G_aug), D)
         B = embed_from_gram_blocks(G, M)
-
-        inv_c0 = _inv_c0_scale(n, M, dtype, device)
-        inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
-        inv_c0_kernels = float(n) * M if C_emb is None else 1.0  # inv_c0's value, for K2 and K3
+        inv_c0_kernels = float(n) * M if C_emb is None else 1.0  # basis.inv_c0's value, for K2 and K3
         with span("neo.solve.eigh", device=device):
-            lam, Qs, inv_c0 = _eigendecompose(B, C_emb, inv_c0, sign)
-            k = Qs.T @ b_vec
+            basis = eigenbasis(B, b_vec, C_emb, n)
 
         # Pass 2: γ-sweep objective reduction over all rows.
         with span("neo.solve.k2", device=device):
-            r_all = (1.0 / (gammas[None, :] + lam[:, None])).contiguous()  # 2M × G
+            r_all = (1.0 / (gammas[None, :] + basis.lam[:, None])).contiguous()  # 2M × G
             loo_errors_gs, objective = row_sum(torch.stack(fused_loo_sweep(
                 X,
                 M_map,
@@ -531,9 +528,9 @@ def primal_fit_streaming(
                 y,
                 s,
                 s2,
-                Qs.contiguous(),
+                basis.Qs.contiguous(),
                 r_all,
-                k,
+                basis.k,
                 is_classifier=is_classifier,
                 inv_c0=inv_c0_kernels,
                 precision=sweep_precision,
@@ -541,44 +538,24 @@ def primal_fit_streaming(
             optimum = torch.argmin(objective)  # the FIRST minimum, as jnp.argmin
             gamma_opt = gammas[optimum]
 
-        # Cholesky re-solve at the optimum (ref :177-178).
-        L = torch.linalg.cholesky(_regularised_gram(B, C_emb, gamma_opt, inv_c0_id))
-        beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
+        beta_emb = resolve_beta(B, C_emb, b_vec, basis, gamma_opt)
 
         # Pass 3: per-row LOO statistics and residuals at the optimum, K3 for float32 rows on
         # a CUDA device (as the JAX package's HIGHEST: 3×TF32 under either sweep_precision).
         on_kernel = device.type == "cuda" and dtype == torch.float32
         with span("neo.solve.pass3", device=device, path=PATH_TF32 if on_kernel else "plain"):
-            r_opt = 1.0 / (gamma_opt + lam)
-            kr_opt = k * r_opt
-            beta_j = sign * beta_emb
+            r_opt = 1.0 / (gamma_opt + basis.lam)
+            kr_opt = basis.k * r_opt
+            beta_j = basis.sign * beta_emb
             if on_kernel:
                 num, sigma2, resid = fused_pass3(
-                    X, M_map, b_map, y, Qs.contiguous(), kr_opt, r_opt, beta_j, inv_c0=inv_c0_kernels
+                    X, M_map, b_map, y, basis.Qs.contiguous(), kr_opt, r_opt, beta_j, inv_c0=inv_c0_kernels
                 )
             else:
                 num, sigma2, resid = pass3_plain(
-                    X, M_map, b_map, y, Qs, kr_opt, r_opt, beta_j, inv_c0=inv_c0, chunk_rows=row_chunk
+                    X, M_map, b_map, y, basis.Qs, kr_opt, r_opt, beta_j, inv_c0=basis.inv_c0, chunk_rows=row_chunk
                 )
-            lev_opt = s2 * sigma2
-            e_raw = (num - y) / (1.0 - lev_opt)
-            residuals = _clip_classifier_residuals(resid, y, is_classifier)
-            e_clipped = _clip_classifier_residuals(e_raw, y, is_classifier)
-            loo_score = _loo_score(y, s, e_raw, is_classifier, row_sum)
-            loo_sigma2 = sigma2 + (s * sigma2) ** 2 / (1.0 - lev_opt)
-
-        return {
-            "beta_emb": beta_emb,
-            "gamma": gamma_opt,
-            "optimum_index": optimum,
-            "lam": lam,
-            "Qs": Qs,
-            "loo_errors_gammas": loo_errors_gs,
-            "loo_residuals": e_clipped,
-            "loo_yhat": y + e_clipped,
-            "loo_leverage": lev_opt,
-            "loo_error": loo_errors_gs[optimum],
-            "loo_score": loo_score,
-            "loo_std": torch.sqrt(loo_sigma2),
-            "residuals": residuals,
-        }
+            return statistics_at_optimum(
+                num, sigma2, resid, y, s, s2, loo_errors_gs, optimum, gamma_opt, basis, beta_emb,
+                is_classifier=is_classifier, row_sum=row_sum,
+            )

@@ -18,7 +18,6 @@ def _resolve_fit_plan(
     *,
     payload_bytes: int,
     device_pt_eligible: bool,
-    tunneled: bool = False,
 ) -> tuple[str, str]:
     """Resolve ``pre_transform="auto"`` / ``transfer="auto"`` to concrete modes.
 
@@ -26,15 +25,11 @@ def _resolve_fit_plan(
       pre-transform (primal route, random-Fourier map with the identity complexity
       matrix) and the feature payload n·d·itemsize is at least
       :data:`AUTO_DEVICE_PT_MIN_BYTES`; else the bit-parity ``"host"`` path.
-    - ``transfer="auto"`` → ``"float32"``. ``tunneled`` is kept so that the function reads
-      like its counterpart; no caller of this package reaches a device through a tunnel,
-      and a tunneled fit is refused rather than narrowed without its cost model.
+    - ``transfer="auto"`` → ``"float32"``: no caller of this package reaches a device
+      through a tunnel, so the counterpart's ``tunneled`` narrowing has no place here.
 
     Explicit values pass through untouched.
     """
-    if tunneled:
-        msg = "A tunneled device is not supported: transfer='auto' has no narrowing policy here."
-        raise ValueError(msg)
     resolved_pt = pre_transform
     if pre_transform == "auto":
         resolved_pt = (

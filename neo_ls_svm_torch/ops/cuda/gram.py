@@ -16,6 +16,7 @@ import math
 import torch
 
 from neo_ls_svm_torch.ops.cuda._build import PATH_FP64, PATH_TF32, check_operands, check_status, load_library
+from neo_ls_svm_torch.ops.loo import fourier_pair, inv_sqrt_width
 from neo_ls_svm_torch.utils.precision import matmul_precision
 
 launches = 0  # Kernel launches of fused_augmented_gram (its plain version is not counted).
@@ -71,22 +72,14 @@ def gram_plain(
     its memory stays O(chunk_rows·(2D+2)). Its products are IEEE float32 (HIGHEST), as
     every dot of the Pallas kernel.
     """
-    D = M_map.shape[1]
-    K = 2 * D + 2
-    inv_sqrt_D = 1.0 / torch.sqrt(torch.tensor(D, dtype=X.dtype, device=X.device))
+    K = 2 * M_map.shape[1] + 2
     G = torch.zeros((K, K), dtype=X.dtype, device=X.device)
+    inv_sqrt_D = inv_sqrt_width(X, M_map)
     for start in range(0, X.shape[0], chunk_rows):
         rows = slice(start, start + chunk_rows)
-        U = X[rows] @ M_map + b_map.reshape(1, -1)
-        Y = torch.cat(
-            [
-                torch.cos(U) * inv_sqrt_D,
-                torch.sin(U) * inv_sqrt_D,
-                torch.ones((U.shape[0], 1), dtype=X.dtype, device=X.device),
-                y[rows, None],
-            ],
-            dim=1,
-        )
+        cos_u, sin_u = fourier_pair(X[rows], M_map, b_map, inv_sqrt_D)
+        ones = torch.ones((cos_u.shape[0], 1), dtype=X.dtype, device=X.device)
+        Y = torch.cat([cos_u, sin_u, ones, y[rows, None]], dim=1)
         G += (Y.T * s2[None, rows]) @ Y
     return G
 
@@ -94,7 +87,7 @@ def gram_plain(
 def w_basis_from_augmented(G_aug: torch.Tensor, D: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Map the kernel's [cos|sin|1|y] augmented Gram into W-basis (Gram, rhs).
 
-    W's column order is [cos/√D, 1, sin/√D, 0] (see ``models/primal.py``); the trailing
+    W's column order is [cos/√D, 1, sin/√D, 0] (see ``ops/loo.py``); the trailing
     zero column contributes zero rows/cols.
     """
     M = D + 1

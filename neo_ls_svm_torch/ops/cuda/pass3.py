@@ -19,10 +19,12 @@ float64 rows, and the tests hold the kernel against it.
 """
 
 import math
+from collections.abc import Callable
 
 import torch
 
 from neo_ls_svm_torch.ops.cuda._build import PATH_TF32, check_status, load_library
+from neo_ls_svm_torch.ops.loo import features_real_pair, identity, inv_sqrt_width
 from neo_ls_svm_torch.utils.precision import matmul_precision
 
 launches = 0  # Kernel launches of fused_pass3 (its plain version is not counted).
@@ -63,25 +65,24 @@ def pass3_plain(
     *,
     inv_c0: "torch.Tensor | float",
     chunk_rows: int = 16384,
+    feature_sum: Callable[[torch.Tensor], torch.Tensor] = identity,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, in X's dtype on X's device: (num, σ², res).
 
     ``kr`` is k∘r, ``r`` the resolvent column, ``beta_j`` = sign∘β_emb and ``inv_c0`` the
     resolvent scale. Per chunk of ``chunk_rows`` rows the features, Gu = W·Qs in IEEE, and
-    Gu·kr, (Gu∘Gu)·r and W·β − y.
+    Gu·kr, (Gu∘Gu)·r and W·β − y. ``feature_sum`` is :func:`sweep_plain`'s hook: it
+    completes num and σ² over the columns of Qs, kr and r held elsewhere; β is whole, so
+    the residual is not summed.
     """
-    D = M_map.shape[1]
-    inv_sqrt_D = 1.0 / torch.sqrt(torch.tensor(D, dtype=X.dtype, device=X.device))
     num_c, sig2_c, res_c = [], [], []
+    inv_sqrt_D = inv_sqrt_width(X, M_map)
     for start in range(0, X.shape[0], chunk_rows):
         rows = slice(start, start + chunk_rows)
-        U = X[rows] @ M_map + b_map
-        ones = torch.ones((U.shape[0], 1), dtype=X.dtype, device=X.device)
-        zeros = torch.zeros((U.shape[0], 1), dtype=X.dtype, device=X.device)
-        W_b = torch.cat([torch.cos(U) * inv_sqrt_D, ones, torch.sin(U) * inv_sqrt_D, zeros], dim=1)
+        W_b = features_real_pair(X[rows], M_map, b_map, inv_sqrt_D)
         Gu_b = W_b @ Qs
-        num_c.append(inv_c0 * (Gu_b @ kr))
-        sig2_c.append(inv_c0 * ((Gu_b * Gu_b) @ r))
+        num_c.append(feature_sum(inv_c0 * (Gu_b @ kr)))
+        sig2_c.append(feature_sum(inv_c0 * ((Gu_b * Gu_b) @ r)))
         res_c.append(W_b @ beta_j - y[rows])
     return torch.cat(num_c), torch.cat(sig2_c), torch.cat(res_c)
 

@@ -16,6 +16,7 @@ float64 off the TPU.
 """
 
 import math
+from collections.abc import Callable
 from typing import Literal
 
 import torch
@@ -28,6 +29,8 @@ from neo_ls_svm_torch.ops.cuda._build import (
     check_status,
     load_library,
 )
+from neo_ls_svm_torch.ops.loo import clip_classifier_residuals, features_real_pair, identity
+from neo_ls_svm_torch.ops.loo import inv_sqrt_width, sweep_objective
 from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
 
 launches = 0  # Kernel launches of fused_loo_sweep (its plain version is not counted).
@@ -115,44 +118,38 @@ def sweep_plain(
     k: torch.Tensor,
     *,
     is_classifier: bool,
-    inv_c0: float,
+    inv_c0: "torch.Tensor | float",
     chunk_rows: int = 16384,
     precision: Literal["high", "fast"] = "high",
+    feature_sum: Callable[[torch.Tensor], torch.Tensor] = identity,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the JAX package's eager sweep
     (``models/primal.py`` streaming pass 2), summed over row chunks.
 
     U = X·M + b runs in IEEE float32 under either precision, as in the kernel; Gu, num
     and lev run in IEEE under "high" and in one TF32 pass under "fast" (on a CUDA tensor:
-    on the CPU every product is IEEE)."""
+    on the CPU every product is IEEE).
+
+    ``feature_sum`` completes num and lev, right after their contraction, over the
+    columns of Qs, k and r_all held elsewhere: the identity here, and a sum across ranks
+    when each holds a block of those columns (``parallel/mesh.py``'s feature axis)."""
     check_sweep_precision(precision)
-    D = M_map.shape[1]
-    dtype, device = X.dtype, X.device
-    inv_sqrt_D = 1.0 / torch.sqrt(torch.tensor(D, dtype=dtype, device=device))
     G = r_all.shape[1]
-    loo_err = torch.zeros(G, dtype=dtype, device=device)
-    objective = torch.zeros(G, dtype=dtype, device=device)
+    loo_err = torch.zeros(G, dtype=X.dtype, device=X.device)
+    objective = torch.zeros(G, dtype=X.dtype, device=X.device)
+    inv_sqrt_D = inv_sqrt_width(X, M_map)
     for start in range(0, X.shape[0], chunk_rows):
         rows = slice(start, start + chunk_rows)
-        U = X[rows] @ M_map + b_map.reshape(1, -1)
-        ones = torch.ones((U.shape[0], 1), dtype=dtype, device=device)
-        W = torch.cat([torch.cos(U) * inv_sqrt_D, ones, torch.sin(U) * inv_sqrt_D, 0 * ones], dim=1)
+        W = features_real_pair(X[rows], M_map, b_map, inv_sqrt_D)
         with matmul_precision(SWEEP_MATMUL[precision]):
             Gu = W @ Qs
             num = inv_c0 * ((Gu * k[None, :]) @ r_all)
             lev = inv_c0 * s2[rows, None] * ((Gu * Gu) @ r_all)
-        y_b = y[rows, None]
-        e = (num - y_b) / (1.0 - lev)
-        if is_classifier:
-            e = torch.where(((y_b > 0) & (e > 0)) | ((y_b < 0) & (e < 0)), torch.zeros_like(e), e)
-        abs_e = torch.abs(e)
-        s_b = s[rows]
-        err_b = s_b @ abs_e
+        num, lev = feature_sum(num), feature_sum(lev)
+        e = clip_classifier_residuals((num - y[rows, None]) / (1.0 - lev), y[rows], is_classifier)
+        err_b, obj_b = sweep_objective(e, s[rows], is_classifier)
         loo_err += err_b
-        if is_classifier:
-            objective += s_b @ (abs_e >= 1).to(dtype) + s_b @ torch.clamp(abs_e - 1, min=0.0) + err_b
-        else:
-            objective += err_b
+        objective += obj_b
     return loo_err, objective
 
 

@@ -18,8 +18,9 @@ The streaming fit runs K1 (``fused_augmented_gram``) and K2 (``fused_loo_sweep``
 rank's rows, as the single-GPU streaming fit does on all of them. With ``num_feature > 1``
 it splits the three O(n·(2M)²) contractions over the ``feature`` axis instead, in plain
 torch: each rank owns a block of Gram or eigenvector columns, the Gram's column blocks are
-gathered before the eigh, and the sweep's num/lev partials are summed over ``feature``
-before the nonlinear LOO step (the fused kernels hide those partials).
+gathered before the eigh, and passes 2 and 3 are ``sweep_plain`` and ``pass3_plain`` on
+the rank's columns, their num/lev and num/σ² partials summed over ``feature`` before the
+nonlinear LOO step (the fused kernels hide those partials).
 
 Every rank passes the full X (a host array, or a tensor on its own device) and receives
 the full result: this is the contract of the JAX package's multi-process fit.
@@ -46,18 +47,16 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from neo_ls_svm_torch.models.primal import (
     PER_ROW_KEYS,
-    _clip_classifier_residuals,
-    _eigendecompose,
-    _features_real_pair,
-    _inv_c0_scale,
-    _loo_score,
-    _regularised_gram,
-    _sign_vector,
-    _sweep_objective,
+    eigenbasis,
     embed_from_gram_blocks,
     primal_fit,
     primal_fit_streaming,
+    resolve_beta,
+    statistics_at_optimum,
 )
+from neo_ls_svm_torch.ops.cuda.pass3 import pass3_plain
+from neo_ls_svm_torch.ops.cuda.sweep import sweep_plain
+from neo_ls_svm_torch.ops.loo import features_real_pair, inv_sqrt_width
 from neo_ls_svm_torch.ops.pretransform_device import (
     device_pre_transform,
     draw_pretransform_inputs,
@@ -65,7 +64,7 @@ from neo_ls_svm_torch.ops.pretransform_device import (
 )
 from neo_ls_svm_torch.parallel import collectives
 from neo_ls_svm_torch.utils.device import padded, require_device, to_device
-from neo_ls_svm_torch.utils.precision import SWEEP_MATMUL, check_sweep_precision, matmul_precision
+from neo_ls_svm_torch.utils.precision import check_sweep_precision, matmul_precision
 
 AXES = ("data", "feature")
 
@@ -270,9 +269,10 @@ def sharded_primal_fit_streaming(
     over rows completed over ``data``: pass 1 is K1 on the rank's rows (``C_emb`` is None;
     a custom C takes ``gram_plain``), pass 2 is K2 on them; on CPU tensors both run their
     plain versions. With ``num_feature > 1`` the three passes run in plain torch on
-    column blocks, with two sums over ``feature`` per row chunk in passes 2 and 3. The
-    per-row outputs come back whole. ``sweep_precision`` reaches K2, or, on the feature
-    axis, pass 2's three products (Gu, num and lev; X·M stays IEEE, as in JAX).
+    column blocks (passes 2 and 3 in ``sweep_plain`` and ``pass3_plain``), with two sums
+    over ``feature`` per row chunk in each of passes 2 and 3. The per-row outputs come
+    back whole. ``sweep_precision`` reaches K2, or, on the feature axis, pass 2's three
+    products (Gu, num and lev; X·M stays IEEE, as in JAX).
     """
     check_sweep_precision(sweep_precision)
     n = num_samples if num_samples is not None else X.shape[0]
@@ -324,19 +324,17 @@ def _fit_streaming_block(
         return _whole_rows(result, data, n)
 
     # The feature axis: each rank contracts every row chunk against its block of Gram or
-    # eigenvector columns. One column gather reassembles the Gram before the eigh, and
-    # the sweep's num/lev partials are summed over "feature" before the nonlinear LOO step
-    # (the fused kernels hide those partials, so neither runs here, as in JAX).
+    # eigenvector columns. One column gather reassembles the Gram before the eigh; passes 2
+    # and 3 are the plain versions of K2 and K3 on this rank's columns, their num/lev and
+    # num/σ² sums over columns completed over "feature" before the nonlinear LOO step (the
+    # fused kernels hide those partials, so neither runs here, as in JAX).
     feature = mesh.get_group("feature")
     f_idx = mesh.get_local_rank("feature")
     feature_sum = partial(collectives.sum_over, group=feature)
-    dtype = X_l.dtype
     M = M_d.shape[1] + 1
     M2 = 2 * M
-    sign = _sign_vector(M, dtype, device)
     s_l = w_l / row_sum(torch.sum(w_l))
     s2_l = s_l * s_l
-    chunks = [slice(start, start + row_chunk) for start in range(0, X_l.shape[0], row_chunk)]
 
     def column_block(a: torch.Tensor, width: int) -> torch.Tensor:
         """This feature rank's block of ``a``'s columns, zero-padded to ``width`` first
@@ -347,73 +345,39 @@ def _fit_streaming_block(
 
     # Pass 1: the row chunk against this rank's block of Y = [W | y]'s columns.
     gram_cols = -(-(M2 + 1) // num_feature) * num_feature
-    G_cols = torch.zeros((M2 + 1, gram_cols // num_feature), dtype=dtype, device=device)
-    for rows in chunks:
-        Y_b = torch.cat([_features_real_pair(X_l[rows], M_d, b_d), y_l[rows, None]], dim=1)
+    G_cols = torch.zeros((M2 + 1, gram_cols // num_feature), dtype=X_l.dtype, device=device)
+    inv_sqrt_D = inv_sqrt_width(X_l, M_d)
+    for start in range(0, X_l.shape[0], row_chunk):
+        rows = slice(start, start + row_chunk)
+        Y_b = torch.cat([features_real_pair(X_l[rows], M_d, b_d, inv_sqrt_D), y_l[rows, None]], dim=1)
         G_cols += (Y_b.T * s2_l[None, rows]) @ column_block(Y_b, gram_cols)
     G_aug = collectives.gather_columns(row_sum(G_cols), feature)[:, : M2 + 1]
     G, b_vec = G_aug[:M2, :M2], G_aug[:M2, M2]
     B = embed_from_gram_blocks(G, M)
-    inv_c0 = _inv_c0_scale(n, M, dtype, device)
-    inv_c0_id = inv_c0  # Identity-C resolvent scale, kept for the re-solve below.
-    lam, Qs, inv_c0 = _eigendecompose(B, C_d, inv_c0, sign)
-    k = Qs.T @ b_vec
+    basis = eigenbasis(B, b_vec, C_d, n)
     eig_cols = -(-M2 // num_feature) * num_feature
-    Qs_loc = column_block(Qs, eig_cols)
-    k_loc = column_block(k[None, :], eig_cols)[0]
-    r_loc = column_block((1.0 / (g_d[None, :] + lam[:, None])).T, eig_cols).T  # block × G
+    Qs_loc = column_block(basis.Qs, eig_cols)
+    k_loc = column_block(basis.k[None, :], eig_cols)[0]
+    r_loc = column_block((1.0 / (g_d[None, :] + basis.lam[:, None])).T, eig_cols).T  # block × G
+    plain = {"inv_c0": basis.inv_c0, "chunk_rows": row_chunk, "feature_sum": feature_sum}
 
-    # Pass 2: the γ-sweep, num and lev summed over "feature" in every row chunk.
-    loo_err_l = torch.zeros(g_d.shape[0], dtype=dtype, device=device)
-    obj_l = torch.zeros_like(loo_err_l)
-    for rows in chunks:
-        W_b = _features_real_pair(X_l[rows], M_d, b_d)
-        with matmul_precision(SWEEP_MATMUL[sweep_precision]):
-            Gu_b = W_b @ Qs_loc
-            num = inv_c0 * ((Gu_b * k_loc[None, :]) @ r_loc)
-            lev = inv_c0 * s2_l[rows, None] * ((Gu_b * Gu_b) @ r_loc)
-        num, lev = feature_sum(num), feature_sum(lev)
-        e = _clip_classifier_residuals((num - y_l[rows, None]) / (1.0 - lev), y_l[rows], is_classifier)
-        loo_err_b, obj_b = _sweep_objective(e, s_l[rows], is_classifier)
-        loo_err_l += loo_err_b
-        obj_l += obj_b
-    loo_errors_gs, objective = row_sum(torch.stack([loo_err_l, obj_l]))
+    # Pass 2: the γ-sweep.
+    loo_errors_gs, objective = row_sum(torch.stack(sweep_plain(
+        X_l, M_d, b_d, y_l, s_l, s2_l, Qs_loc, r_loc, k_loc, is_classifier=is_classifier, precision=sweep_precision,
+        **plain,
+    )))
     optimum = torch.argmin(objective)
     gamma_opt = g_d[optimum]
-    L = torch.linalg.cholesky(_regularised_gram(B, C_d, gamma_opt, inv_c0_id))
-    beta_emb = torch.cholesky_solve((sign * b_vec)[:, None], L)[:, 0]
+    beta_emb = resolve_beta(B, C_d, b_vec, basis, gamma_opt)
 
-    # Pass 3: per-row statistics at the optimum, num and σ² summed over "feature".
-    r_opt = 1.0 / (gamma_opt + lam)
-    r_opt_loc, kr_opt_loc = (column_block(v[None, :], eig_cols)[0] for v in (r_opt, k * r_opt))
-    beta_j = sign * beta_emb
-    e_raw_c, sig2_c, resid_c = [], [], []
-    for rows in chunks:
-        W_b = _features_real_pair(X_l[rows], M_d, b_d)
-        Gu_b = W_b @ Qs_loc
-        num = feature_sum(inv_c0 * (Gu_b @ kr_opt_loc))
-        sig2 = feature_sum(inv_c0 * ((Gu_b * Gu_b) @ r_opt_loc))
-        e_raw_c.append((num - y_l[rows]) / (1.0 - s2_l[rows] * sig2))
-        sig2_c.append(sig2)
-        resid_c.append(W_b @ beta_j - y_l[rows])
-    e_raw, sigma2 = torch.cat(e_raw_c), torch.cat(sig2_c)
-    lev_opt = s2_l * sigma2
-    e_clipped = _clip_classifier_residuals(e_raw, y_l, is_classifier)
-    result = {
-        "beta_emb": beta_emb,
-        "gamma": gamma_opt,
-        "optimum_index": optimum,
-        "lam": lam,
-        "Qs": Qs,
-        "loo_errors_gammas": loo_errors_gs,
-        "loo_residuals": e_clipped,
-        "loo_yhat": y_l + e_clipped,
-        "loo_leverage": lev_opt,
-        "loo_error": loo_errors_gs[optimum],
-        "loo_score": _loo_score(y_l, s_l, e_raw, is_classifier, row_sum),
-        "loo_std": torch.sqrt(sigma2 + (s_l * sigma2) ** 2 / (1.0 - lev_opt)),
-        "residuals": _clip_classifier_residuals(torch.cat(resid_c), y_l, is_classifier),
-    }
+    # Pass 3: per-row statistics at the optimum.
+    r_opt = 1.0 / (gamma_opt + basis.lam)
+    r_opt_loc, kr_opt_loc = (column_block(v[None, :], eig_cols)[0] for v in (r_opt, basis.k * r_opt))
+    num, sigma2, resid = pass3_plain(X_l, M_d, b_d, y_l, Qs_loc, kr_opt_loc, r_opt_loc, basis.sign * beta_emb, **plain)
+    result = statistics_at_optimum(
+        num, sigma2, resid, y_l, s_l, s2_l, loo_errors_gs, optimum, gamma_opt, basis, beta_emb,
+        is_classifier=is_classifier, row_sum=row_sum,
+    )
     return _whole_rows(result, data, n)
 
 

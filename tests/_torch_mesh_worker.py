@@ -63,6 +63,15 @@ def _join_group(rank: int, world: int, workdir: Path) -> None:
     )
 
 
+def _leave_group() -> None:
+    """Destroy the rank's process groups before it exits. Left to interpreter exit, gloo's
+    teardown takes seconds a rank and, under load, can abort one (SIGABRT, "terminate called
+    without an active exception") after every rank has written its results."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    dist.destroy_process_group()
+
+
 def _arrays(result: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in result.items()}
 
@@ -270,6 +279,7 @@ def mesh_scenarios(rank: int, world: int, workdir: Path, shape: tuple[int, int],
     results = {name: runners[case["kind"]](mesh, case) for name, case in cases.items()}
     results["mesh_reused"] = make_mesh(*shape, device_type="cpu") is mesh
     _write(workdir, rank, results)
+    _leave_group()
 
 
 def distributed_scenario(rank: int, world: int, workdir: Path, case: dict) -> None:
@@ -303,3 +313,4 @@ def distributed_scenario(rank: int, world: int, workdir: Path, case: dict) -> No
     for route, row_chunk in (("inmemory", None), ("streaming", 128)):
         out[route] = _sharded(mesh, {**case, "route": route, "row_chunk": row_chunk})
     _write(workdir, rank, out)
+    _leave_group()

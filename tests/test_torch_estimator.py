@@ -292,9 +292,9 @@ def test_routing_threshold_equals_the_jax_package() -> None:
         for transfer in ("auto", "float32", "bfloat16", "int8"):
             for payload in (0, 32 * 1024**2 - 1, 32 * 1024**2, 1 << 30):
                 for eligible in (False, True):
-                    kw = {"payload_bytes": payload, "device_pt_eligible": eligible, "tunneled": False}
+                    kw = {"payload_bytes": payload, "device_pt_eligible": eligible}
                     assert t_routing._resolve_fit_plan(pre_transform, transfer, **kw) == j_routing._resolve_fit_plan(
-                        pre_transform, transfer, **kw
+                        pre_transform, transfer, **kw, tunneled=False
                     )
 
 
